@@ -1,0 +1,149 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, under ``build/kernels/`` at the
+root of the checkout, and loaded with ``ctypes``.  The build happens at
+first use and is keyed by a hash of every source in ``csrc/`` and the
+compiler flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is.  ``build_all`` starts one ``nvcc`` per source at once.
+
+Nothing here runs at import: the CPU tests import every module, and this
+machine may have no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, List, Sequence
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+KERNELS = ("paged_decode_attention", "packed_prefill_attention")
+
+# torch dtype -> the dtype code of csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# ctypes signatures of the C entry points: pointers and the stream are
+# c_void_p (a bare Python int would be cut to 32 bits), sizes c_int
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "paged_decode_attention":
+        [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P],
+    "packed_prefill_attention":
+        [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P],
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "source at first use and need the CUDA toolkit")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _so_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest()}.so"
+
+
+def _start(name: str) -> subprocess.Popen:
+    """Start one nvcc for ``csrc/<name>.cu`` into a temporary file that
+    ``_finish`` renames into place (a half-written library is never
+    loaded)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = _so_path(name).with_suffix(f".tmp{os.getpid()}")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(name: str, proc: subprocess.Popen) -> None:
+    out, _ = proc.communicate()
+    tmp = Path(proc.args[proc.args.index("-o") + 1])
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu "
+                           f"(exit {proc.returncode}):\n{out}")
+    tmp.replace(_so_path(name))
+
+
+def _load(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_so_path(name)))
+    fn = getattr(lib, name)
+    fn.argtypes = SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def build_all(names: Iterable[str] = KERNELS) -> List[str]:
+    """Build every named kernel that is not built yet, one ``nvcc`` per
+    source, all started together; then load them.  Returns the names that
+    were compiled (empty when every library was already built)."""
+    with _lock:
+        todo = [n for n in names if n not in _libs
+                and not _so_path(n).exists()]
+        procs = [(n, _start(n)) for n in todo]
+        errors = []
+        for n, p in procs:
+            try:
+                _finish(n, p)
+            except RuntimeError as e:
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        for n in names:
+            if n not in _libs:
+                _libs[n] = _load(n)
+        return todo
+
+
+def function(name: str):
+    """The C entry point ``name`` of ``csrc/<name>.cu``, built on first use."""
+    if name not in _libs:
+        build_all([name])
+    return getattr(_libs[name], name)
+
+
+def check_cuda(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def check_tensors(name: str, tensors: Sequence[torch.Tensor],
+                  dtype: torch.dtype, device: torch.device) -> None:
+    """What every kernel wrapper refuses rather than passes to the card:
+    a tensor on another device, of another dtype, or not contiguous."""
+    for i, t in enumerate(tensors):
+        if t.device != device:
+            raise ValueError(f"{name}: argument {i} is on {t.device}, "
+                             f"expected {device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: argument {i} has dtype {t.dtype}, "
+                             f"expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: argument {i} is not contiguous")

@@ -1,0 +1,79 @@
+"""Packed-prefill attention on the card: the wrapper of
+``csrc/packed_prefill_attention.cu``.
+
+Replaces the Pallas ``packed_prefill_attention``
+(src/repro/kernels/flash_attention.py:217).  Unlike the Pallas kernel it
+tiles per segment, so it serves streams whose segments are aligned to any
+``pack_align`` (the serving default is 8).  ``kernels/ref.py`` holds the
+plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+# (token, head) query rows per block of the kernel: G = H / Hkv must
+# divide it
+_ROWS = 64
+# head dims the kernel is instantiated for: the reduced (16) and full (128)
+# configurations
+_HEAD_DIMS = (16, 128)
+
+
+def packed_prefill_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
+                             seg_starts, seg_offsets, seg_lengths, *,
+                             ring: int, window: int = 0):
+    """q [T,H,D]; k_new/v_new [T,Hkv,D] the stream's own keys/values;
+    k_pages/v_pages [n_pages,P,Hkv,D] the history pool; block_tables [N,W]
+    int32 per-segment page rows; seg_starts/seg_offsets/seg_lengths [N]
+    int32.  ``ring`` is the run's logical ring span, ``window`` its sliding
+    window (0 = full).  Returns ctx [T,H,D] in q's dtype; rows outside
+    every real segment are zero.
+
+    CUDA tensors only: anything the kernel does not take raises."""
+    name = "packed_prefill_attention"
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel runs on CUDA tensors, got "
+                         f"{q.device}")
+    if q.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"{name}: unsupported dtype {q.dtype}")
+    T, H, D = q.shape
+    n_pages, P, Hkv, Dk = k_pages.shape
+    if (k_new.shape != (T, Hkv, D) or v_new.shape != k_new.shape
+            or v_pages.shape != k_pages.shape or Dk != D or H % Hkv
+            or _ROWS % (H // Hkv) or D not in _HEAD_DIMS):
+        raise ValueError(
+            f"{name}: shapes q {tuple(q.shape)} k_new {tuple(k_new.shape)} "
+            f"pages {tuple(k_pages.shape)} (H/Hkv must divide {_ROWS}, head "
+            f"dim one of {_HEAD_DIMS})")
+    N, W = block_tables.shape
+    for t in (seg_starts, seg_offsets, seg_lengths):
+        if t.shape != (N,):
+            raise ValueError(f"{name}: segment vectors must be [{N}], got "
+                             f"{tuple(t.shape)}")
+    if ring < 1:
+        raise ValueError(f"{name}: ring must be >= 1, got {ring}")
+    _build.check_tensors(name, [q, k_new, v_new, k_pages, v_pages], q.dtype,
+                         q.device)
+    _build.check_tensors(name, [block_tables, seg_starts, seg_offsets,
+                                seg_lengths], torch.int32, q.device)
+    fn = _build.function(name)
+    out = torch.zeros_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k_new.data_ptr(),
+             v_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             block_tables.data_ptr(), seg_starts.data_ptr(),
+             seg_offsets.data_ptr(), seg_lengths.data_ptr(), out.data_ptr(),
+             T, H, Hkv, D, N, n_pages, P, W, int(ring), int(window),
+             1.0 / math.sqrt(D), stream)
+    _build.check_cuda(name, err)
+    packed_prefill_attention.launches += 1
+    return out
+
+
+# launches of the kernel (the wrapper counts each, and nothing else does)
+packed_prefill_attention.launches = 0

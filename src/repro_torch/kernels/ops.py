@@ -1,0 +1,45 @@
+"""The kernels' public entry points: a dispatcher by device.
+
+Tensors on the CPU go to the plain PyTorch version (``kernels/ref.py``);
+tensors on CUDA go to the hand-written Hopper kernel, which builds and
+launches or raises — nothing falls back to the plain version or moves a
+tensor to the CPU.  This takes the place of the reference's
+``_interpret()`` switch (src/repro/kernels/ops.py:20), which ran the
+Pallas kernels in interpret mode off the TPU.
+"""
+
+from __future__ import annotations
+
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ref as _ref
+
+
+def _on_cpu(t) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel for device {t.device}")
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
+    """Paged decode attention: q [B,H,D] vs pool [n_pages,P,Hkv,D] gathered
+    through block_tables [B,W] (entries >= n_pages: unallocated)."""
+    if _on_cpu(q):
+        return _ref.paged_decode_attention_ref(q, k_pages, v_pages,
+                                               block_tables, lengths)
+    return _da.paged_decode_attention(q, k_pages, v_pages, block_tables,
+                                      lengths)
+
+
+def packed_prefill_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
+                             seg_starts, seg_offsets, seg_lengths, *,
+                             ring: int, window: int = 0):
+    """Packed multi-request prefill attention: flat stream q/k_new/v_new
+    [T,H|Hkv,D] of segments, each attending over its own history (pool
+    [n_pages,P,Hkv,D] via per-segment block_tables [N,W])."""
+    fn = (_ref.packed_prefill_attention_ref if _on_cpu(q)
+          else _fa.packed_prefill_attention)
+    return fn(q, k_new, v_new, k_pages, v_pages, block_tables, seg_starts,
+              seg_offsets, seg_lengths, ring=ring, window=window)

@@ -1,0 +1,65 @@
+"""Plain PyTorch versions of the port's kernels, with the kernels' exact
+signatures.  The CPU path runs them; on the card they are what each kernel
+is held against.  They repeat the kernels' arithmetic and are no yardstick
+of speed."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths):
+    """Plain version of ``paged_decode_attention``: gather the pages
+    through ``block_tables.clamp(max=n_pages-1)``, mask positions at or past
+    ``lengths`` and sentinel pages, softmax in f32, and P.V with p rounded
+    to the value dtype.  Masked V rows are zeroed, so a non-finite value on
+    a masked row never reaches the output."""
+    B, H, D = q.shape
+    n_pages, P, Hkv = k_pages.shape[0], k_pages.shape[1], k_pages.shape[2]
+    W = block_tables.shape[1]
+    G = H // Hkv
+    bt = block_tables.long()
+    pages = bt.clamp(0, n_pages - 1)
+    gk = k_pages[pages].reshape(B, W * P, Hkv, D)
+    gv = v_pages[pages].reshape(B, W * P, Hkv, D)
+    idx = torch.arange(W * P, device=q.device)
+    valid = ((idx[None, :] < lengths.long()[:, None])
+             & ~(bt >= n_pages).repeat_interleave(P, dim=1))       # [B, S]
+    qg = q.reshape(B, Hkv, G, D).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, gk.float()) / math.sqrt(D)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    gv = torch.where(valid[:, :, None, None], gv, torch.zeros_like(gv))
+    ctx = torch.einsum("bhgs,bshd->bhgd", p.to(v_pages.dtype).float(),
+                       gv.float())
+    return ctx.reshape(B, H, D).to(q.dtype)
+
+
+def packed_prefill_attention_ref(q, k_new, v_new, k_pages, v_pages,
+                                 block_tables, seg_starts, seg_offsets,
+                                 seg_lengths, *, ring: int, window: int = 0):
+    """Plain version of ``packed_prefill_attention``: build each segment's
+    history positions exactly as attn_chunk_packed_paged does
+    (src/repro/models/attention.py:697-703) and run the port's
+    ``_packed_attention``.  Rows outside every real segment are zero, as
+    the kernel leaves them."""
+    from repro_torch.models.attention import (_gather_history,
+                                              _packed_attention,
+                                              make_packed_segs)
+
+    T, H, D = q.shape
+    Hkv = k_pages.shape[2]
+    N = block_tables.shape[0]
+    prev_k, prev_v, prev_pos = _gather_history(k_pages, v_pages,
+                                               block_tables, seg_offsets,
+                                               ring)
+    seg = make_packed_segs(seg_starts, seg_offsets, seg_lengths,
+                           torch.arange(N, device=q.device), T)
+    ctx = _packed_attention(q, k_new, v_new, prev_k, prev_v, prev_pos, seg,
+                            n_heads=H, n_kv_heads=Hkv, d_head=D,
+                            window=window, softcap=0.0)
+    return ctx.reshape(T, H, D).to(q.dtype)

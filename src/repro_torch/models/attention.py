@@ -1,0 +1,334 @@
+"""Attention over the paged KV pool — the serving main path (port of the
+paged, float-pool part of src/repro/models/attention.py).
+
+* ``attn_decode_paged`` — one new token per sequence against the pool,
+  through the paged flash-decode kernel (HALO's CiD phase).
+* ``attn_chunk_packed_paged`` — one tick's prefill chunks as a flat token
+  stream, through the packed-prefill kernel (HALO's CiM phase).
+
+Both update the pool IN PLACE: the reference scatters functionally with
+``.at[...].set(..., mode="drop")`` and relies on out-of-range sentinel
+indices being dropped; here the dropped rows are filtered out before an
+in-place ``index_put_`` (an out-of-range index is an error on the CPU and
+undefined on CUDA).  The pools are zero-initialized and only ever written
+with finite values, and every read path masks unwritten entries.
+
+Quantized pools (int8/int4 KV) arrive with ROADMAP queue A, item 6.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.kernels import ops as _kops
+from repro_torch.models.layers import apply_rope, head_rmsnorm, matmul
+
+NEG_INF = -1e30
+_INT32_MAX = 2 ** 31 - 1
+
+
+# ---------------------------------------------------------------------------
+# qkv projection (shared between phases)
+# ---------------------------------------------------------------------------
+
+def _project_qkv(params, x, n_heads, n_kv_heads, d_head, positions, theta,
+                 qk_norm: bool):
+    """x [B,T,d] -> q [B,T,H,D], k/v [B,T,Hkv,D], qk-norm then RoPE at
+    ``positions`` [B,T] (the reference's sharding constraints are dropped:
+    one card needs none)."""
+    B, T = x.shape[0], x.shape[1]
+    q = matmul(x, params["wq"]).reshape(B, T, n_heads, d_head)
+    k = matmul(x, params["wk"]).reshape(B, T, n_kv_heads, d_head)
+    v = matmul(x, params["wv"]).reshape(B, T, n_kv_heads, d_head)
+    if qk_norm:
+        q = head_rmsnorm(params["q_norm"], q)
+        k = head_rmsnorm(params["k_norm"], k)
+    q = apply_rope(q, positions, theta)
+    k = apply_rope(k, positions, theta)
+    return q, k, v
+
+
+def _maybe_softcap(scores, softcap: float):
+    if softcap and softcap > 0.0:
+        return softcap * torch.tanh(scores / softcap)
+    return scores
+
+
+def _paged_ring(window, n_pages: int, page_size: int) -> int:
+    """Logical ring span of a paged run: min(window, pool capacity)."""
+    capacity = n_pages * page_size
+    w = int(window)
+    return min(w, capacity) if w > 0 else capacity
+
+
+def _float_pool(cache) -> None:
+    if "k_scale" in cache:
+        raise NotImplementedError("int8/int4 KV: later slice "
+                                  "(ROADMAP queue A, item 6)")
+
+
+# ---------------------------------------------------------------------------
+# packed chunked prefill (flat token stream, per-token segment metadata)
+# ---------------------------------------------------------------------------
+
+class PackedSegs(NamedTuple):
+    """Per-token segment metadata for a packed prefill stream of T tokens
+    holding N segments (one per request chunk; pad segments carry
+    start == T so no token maps onto them).
+
+    Per-token ([T]): seg_id, positions (absolute), valid (non-pad),
+    jj (index within segment), lens_tok (segment length broadcast),
+    tok_slot (arena slot broadcast).  Per-segment ([N]): starts, offsets,
+    lengths, slots.  Index tensors are int64.
+    """
+    seg_id: Any
+    positions: Any
+    valid: Any
+    jj: Any
+    lens_tok: Any
+    tok_slot: Any
+    starts: Any
+    offsets: Any
+    lengths: Any
+    slots: Any
+
+
+def make_packed_segs(starts, offsets, lengths, slots, T: int) -> PackedSegs:
+    """Expand per-segment (starts/offsets/lengths/slots, all [N]) into the
+    per-token view over a T-token stream.  ``starts`` must be non-decreasing
+    with starts[0] == 0; pad segments use start == T (stream length) so the
+    running count assigns tail tokens to the last real segment."""
+    starts = torch.as_tensor(starts).long()
+    dev = starts.device
+    offsets = torch.as_tensor(offsets, device=dev).long()
+    lengths = torch.as_tensor(lengths, device=dev).long()
+    slots = torch.as_tensor(slots, device=dev).long()
+    t = torch.arange(T, device=dev)
+    seg_id = ((t[:, None] >= starts[None, :]).sum(dim=1) - 1).clamp(min=0)
+    jj = t - starts[seg_id]
+    lens_tok = lengths[seg_id]
+    valid = jj < lens_tok
+    positions = offsets[seg_id] + jj
+    tok_slot = slots[seg_id]
+    return PackedSegs(seg_id, positions, valid, jj, lens_tok, tok_slot,
+                      starts, offsets, lengths, slots)
+
+
+def _gather_history(k_pages, v_pages, bt_rows, offsets, ring: int):
+    """Each segment's history through its block-table row bt_rows [N, W]:
+    prev_k/prev_v [N, W*P, Hkv, D] and the logical position each slot holds,
+    prev_pos [N, W*P] (-1 = invalid), exactly as the reference builds them
+    (src/repro/models/attention.py:682-703): ring slot s holds the largest
+    position p < off with p % ring == s; slots past the ring span and on
+    unallocated (sentinel) pages are invalid."""
+    n_pages, P, Hkv, D = k_pages.shape
+    N, W = bt_rows.shape
+    S = W * P
+    bt = bt_rows.long()
+    pages = bt.clamp(0, n_pages - 1)
+    prev_k = k_pages[pages].reshape(N, S, Hkv, D)
+    prev_v = v_pages[pages].reshape(N, S, Hkv, D)
+    s_idx = torch.arange(S, device=bt.device)
+    offs = offsets.long()
+    prev_pos = offs[:, None] - 1 - torch.remainder(
+        offs[:, None] - 1 - s_idx[None, :], ring)
+    prev_pos = torch.where(s_idx[None, :] < ring, prev_pos, -1)
+    prev_pos = torch.where((bt >= n_pages).repeat_interleave(P, dim=1), -1,
+                           prev_pos)
+    return prev_k, prev_v, prev_pos
+
+
+def _packed_attention(q, k, v, prev_k, prev_v, prev_pos, seg, *,
+                      n_heads, n_kv_heads, d_head, window, softcap):
+    """Segment-masked attention over a packed stream (the reference's
+    ``_packed_attention_jax``, src/repro/models/attention.py:533).
+
+    q: [T, H, D]; k/v: [T, Hkv, D] (the stream's own projected keys/values);
+    prev_k/prev_v: [N, S, Hkv, D] per-SEGMENT history with logical positions
+    prev_pos [N, S] (-1 = invalid).  Token t attends over its segment's
+    history plus the causally visible same-segment stream tokens.  Returns
+    ctx [T, H*D] in f32.
+
+    Computed one segment at a time, so memory stays at one segment's
+    [len, H, S + len] scores instead of the reference's [T, H, S + T]; on
+    the rows of real segments the arithmetic is the reference's.  Rows of
+    pad tokens (don't-care in the reference) are zero.  Masked history V
+    rows are zeroed, so an unwritten page cannot inject a non-finite value.
+    """
+    T = q.shape[0]
+    S = prev_k.shape[1]
+    Hkv = n_kv_heads
+    G = n_heads // Hkv
+    w = int(window) if int(window) > 0 else _INT32_MAX
+    out = torch.zeros((T, Hkv, G, d_head), dtype=torch.float32,
+                      device=q.device)
+    starts = seg.starts.tolist()
+    lengths = seg.lengths.tolist()
+    for n, (st, ln) in enumerate(zip(starts, lengths)):
+        if ln <= 0 or st >= T:
+            continue
+        qn = q[st:st + ln].reshape(ln, Hkv, G, d_head).float()
+        pq = seg.positions[st:st + ln]                              # [ln]
+        s_hist = torch.einsum("thgd,shd->thgs", qn, prev_k[n].float())
+        s_self = torch.einsum("thgd,uhd->thgu", qn, k[st:st + ln].float())
+        scores = torch.cat([s_hist, s_self], dim=-1) / math.sqrt(d_head)
+        scores = _maybe_softcap(scores, softcap)
+        pk = torch.cat([prev_pos[n], pq])                           # [S+ln]
+        ok = ((pk[None, :] >= 0) & (pk[None, :] <= pq[:, None])
+              & ((pq[:, None] - pk[None, :]) < w))
+        scores = torch.where(ok[:, None, None, :], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        hv = torch.where((prev_pos[n] >= 0)[:, None, None], prev_v[n],
+                         torch.zeros_like(prev_v[n]))
+        ctx = torch.einsum("thgs,shd->thgd",
+                           probs[..., :S].to(hv.dtype).float(), hv.float())
+        ctx = ctx + torch.einsum("thgu,uhd->thgd",
+                                 probs[..., S:].to(v.dtype).float(),
+                                 v[st:st + ln].float())
+        out[st:st + ln] = ctx
+    return out.reshape(T, n_heads * d_head)
+
+
+def packed_write_index(seg: PackedSegs, bt_rows, ring: int, page_size: int,
+                       n_pages: int, n_slots: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(tokens, pages, offsets) of the pool writes a packed stream makes:
+    only each segment's last ``ring`` tokens (ring discipline — earlier
+    positions a later token of the same chunk wraps onto must not be
+    written), only real segments, only allocated pages.  The same for every
+    layer of a run, so the caller computes it once per forward."""
+    keep = (seg.valid & (seg.jj >= seg.lens_tok - ring)
+            & (seg.tok_slot >= 0) & (seg.tok_slot < n_slots))
+    ridx = seg.positions % ring
+    w_page = bt_rows.long()[seg.seg_id, ridx // page_size]
+    keep = keep & (w_page >= 0) & (w_page < n_pages)
+    toks = torch.nonzero(keep).flatten()
+    return toks, w_page[toks], (ridx % page_size)[toks]
+
+
+def attn_chunk_packed_paged(params, x, seg: PackedSegs, cache, block_table,
+                            *, n_heads, n_kv_heads, d_head, theta, window,
+                            softcap=0.0, qk_norm=False, write=None):
+    """Packed-stream chunked prefill writing K/V into the paged pool.
+
+    x: [1, T, d] — one flat stream of N segments described by ``seg``;
+    ``cache`` {"k","v"} of [n_pages, P, Hkv, D] addressed via
+    ``block_table`` [B, W].  Each token attends over its own segment's
+    history plus the causally visible tokens of its segment in the stream;
+    the history is read BEFORE the stream's K/V are written (a ring entry
+    the chunk overwrites is still needed by the chunk's early queries).
+    The attention runs in the packed-prefill kernel (plain version on the
+    CPU); a softcapped model takes a plain gather path.  ``write`` is the
+    precomputed ``packed_write_index`` (computed here when omitted).
+
+    Returns (out [1, T, d_model], cache) — the pool updated in place.
+    """
+    _float_pool(cache)
+    _, T, _ = x.shape
+    k_pages, v_pages = cache["k"], cache["v"]
+    n_pages, P = k_pages.shape[0], k_pages.shape[1]
+    B = block_table.shape[0]
+    R = _paged_ring(window, n_pages, P)
+    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, d_head,
+                           seg.positions[None], theta, qk_norm)
+    q, k, v = q[0], k[0], v[0]                                   # [T, ...]
+    bt_rows = block_table[seg.slots.clamp(0, B - 1)]             # [N, W]
+    if softcap and softcap > 0.0:
+        # no kernel path for softcap (not on the paper's models)
+        prev_k, prev_v, prev_pos = _gather_history(k_pages, v_pages, bt_rows,
+                                                   seg.offsets, R)
+        ctx = _packed_attention(q, k, v, prev_k, prev_v, prev_pos, seg,
+                                n_heads=n_heads, n_kv_heads=n_kv_heads,
+                                d_head=d_head, window=window, softcap=softcap)
+    else:
+        i32 = torch.int32
+        ctx = _kops.packed_prefill_attention(
+            q, k, v, k_pages, v_pages, bt_rows.to(i32).contiguous(),
+            seg.starts.to(i32), seg.offsets.to(i32), seg.lengths.to(i32),
+            ring=R, window=int(window)).reshape(T, n_heads * d_head)
+    out = matmul(ctx[None].to(x.dtype), params["wo"])
+
+    if write is None:
+        write = packed_write_index(seg, bt_rows, R, P, n_pages, B)
+    toks, w_page, w_off = write
+    k_pages[w_page, w_off] = k[toks]        # in place (reference: .at[].set)
+    v_pages[w_page, w_off] = v[toks]
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# decode (paged pool)
+# ---------------------------------------------------------------------------
+
+def paged_write_index(block_table, pos, ring: int, page_size: int,
+                      n_pages: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(rows, pages, offsets) of a decode step's pool writes: row b writes
+    position pos[b] at ring index pos % ring through its block-table row;
+    rows whose page is the sentinel (inactive slots, pad rows) are dropped.
+    The same for every layer of a run."""
+    B = block_table.shape[0]
+    ridx = pos.long() % ring
+    w_page = block_table.long()[torch.arange(B, device=pos.device),
+                                ridx // page_size]
+    keep = (w_page >= 0) & (w_page < n_pages)
+    rows = torch.nonzero(keep).flatten()
+    return rows, w_page[rows], (ridx % page_size)[rows]
+
+
+def attn_decode_paged(params, x, cache, block_table, pos, *, n_heads,
+                      n_kv_heads, d_head, theta, window, softcap=0.0,
+                      qk_norm=False, write=None):
+    """One-token decode against the paged pool, through the paged
+    flash-decode kernel (plain version on the CPU).
+
+    x: [B, 1, d_model]; cache: {"k","v"} of [n_pages, P, Hkv, Dh];
+    block_table: [B, W] int32 (sentinel >= n_pages: unallocated — inactive
+    rows carry all-sentinel rows, so their writes drop); pos: [B] absolute
+    position of the NEW token.  The new entry is written first, then
+    attended.  Returns (out, cache) — the pool updated in place.
+    """
+    _float_pool(cache)
+    B = x.shape[0]
+    k_pages, v_pages = cache["k"], cache["v"]
+    n_pages, P = k_pages.shape[0], k_pages.shape[1]
+    R = _paged_ring(window, n_pages, P)
+    pos = torch.as_tensor(pos, device=x.device).long().expand(B)
+    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, d_head,
+                           pos[:, None], theta, qk_norm)
+    if write is None:
+        write = paged_write_index(block_table, pos, R, P, n_pages)
+    rows, w_page, w_off = write
+    k_pages[w_page, w_off] = k[rows, 0]     # in place (reference: .at[].set)
+    v_pages[w_page, w_off] = v[rows, 0]
+    # ring validity: exactly min(pos + 1, R) leading logical entries
+    lengths = torch.clamp(pos + 1, max=R)
+    if softcap and softcap > 0.0:
+        # no kernel path for softcap (not on the paper's models): a dense
+        # gathered view and the reference math
+        bt = block_table.long()
+        pages = bt.clamp(0, n_pages - 1)
+        gk = k_pages[pages].reshape(B, -1, n_kv_heads, d_head)
+        gv = v_pages[pages].reshape(B, -1, n_kv_heads, d_head)
+        Hkv, G = n_kv_heads, n_heads // n_kv_heads
+        qg = q.reshape(B, Hkv, G, d_head).float()
+        s = torch.einsum("bhgd,bshd->bhgs", qg, gk.float()) / math.sqrt(d_head)
+        s = _maybe_softcap(s, softcap)
+        S = gk.shape[1]
+        ok = ((torch.arange(S, device=x.device)[None, :] < lengths[:, None])
+              & ~(bt >= n_pages).repeat_interleave(P, dim=1))
+        s = torch.where(ok[:, None, None, :], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        ctx = torch.einsum("bhgs,bshd->bhgd", p.to(gv.dtype).float(),
+                           gv.float())
+    else:
+        ctx = _kops.paged_decode_attention(
+            q.reshape(B, n_heads, d_head), k_pages, v_pages,
+            block_table.to(torch.int32).contiguous(),
+            lengths.to(torch.int32))
+    ctx = ctx.reshape(B, 1, n_heads * d_head).to(x.dtype)
+    out = matmul(ctx, params["wo"])
+    return out, cache

@@ -1,0 +1,55 @@
+"""Weights from the reference onto the port.
+
+The reference's ``init_params`` pytree (src/repro/models/transformer.py:162)
+and the port's parameters share one layout: ``embed`` [V, d], ``lm_head``
+[d, V] (absent when embeddings are tied), ``final_norm`` {"scale"}, and per
+run ``runs[r]`` with every leaf stacked [n_layers, ...] — ``ln1``/``ln2``
+{"scale"}, ``attn`` {"wq","wk","wv","wo"[, "q_norm","k_norm"]} and ``ffn``
+{"wi_gate","wi_up","wo"}.  The converter takes that pytree as numpy arrays
+(the caller converts the JAX arrays), checks it, and copies each leaf onto
+the device.  No checkpoint is ever downloaded.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+_RUN_KEYS = {"ln1": {"scale"}, "ln2": {"scale"},
+             "attn": {"wq", "wk", "wv", "wo"}, "ffn": {"wi_gate", "wi_up", "wo"}}
+
+
+def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":           # ml_dtypes bf16: via f32
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))    # a writable copy
+    return t.to(device=device, dtype=dtype or t.dtype).contiguous()
+
+
+def _tree(x, device, dtype):
+    if isinstance(x, dict):
+        return {k: _tree(v, device, dtype) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_tree(v, device, dtype) for v in x]
+    return _leaf(x, device, dtype)
+
+
+def params_from_jax(np_pytree: Any, device,
+                    dtype: Optional[torch.dtype] = None) -> dict:
+    """The reference's parameter pytree (numpy leaves) as the port's
+    parameters on ``device`` (cast to ``dtype`` when given)."""
+    missing = {"embed", "final_norm", "runs"} - set(np_pytree)
+    if missing:
+        raise ValueError(f"params_from_jax: missing {sorted(missing)}")
+    for r, run in enumerate(np_pytree["runs"]):
+        for key, leaves in _RUN_KEYS.items():
+            if key not in run or not leaves <= set(run[key]):
+                raise ValueError(
+                    f"params_from_jax: runs[{r}][{key!r}] needs "
+                    f"{sorted(leaves)} (only dense attention runs are "
+                    "ported so far)")
+    return _tree(dict(np_pytree), device, dtype)

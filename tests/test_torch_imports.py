@@ -1,0 +1,45 @@
+"""The port stands alone: no module of ``src/repro_torch`` and not
+``chip_smoke.py`` imports JAX or anything of the JAX package ``repro`` —
+the card's machine has neither.  Checked on the source with ``ast``, so a
+lazy import inside a function counts too."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [f"{path.name}:{line} imports {name}"
+           for line, name in _imports(path) if _forbidden(name)]
+    assert not bad, bad
+
+
+def test_guard_sees_what_it_must_refuse(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import jax.numpy as jnp\nfrom repro.configs import x\n"
+                   "def f():\n    import repro.kernels\n"
+                   "from repro_torch import y\nimport reprox\n")
+    names = [n for _, n in _imports(src) if _forbidden(n)]
+    assert names == ["jax.numpy", "repro.configs", "repro.kernels"]
+    assert len(FILES) > 20

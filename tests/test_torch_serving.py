@@ -1,0 +1,186 @@
+"""The port's host-side serving pieces against the JAX package's on the CPU:
+the page pool's accounting and invariants, the scheduler's packing and tick
+plans, the KV pool's device layout, greedy sampling, the executor's compile
+counting, and the options this slice refuses."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro.serving import kv_pool as jax_kv_pool
+from repro.serving import scheduler as jax_sched
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.models.transformer import init_params
+from repro_torch.serving import kv_pool, sampling, scheduler
+from repro_torch.serving.engine import ServeConfig, ServingEngine
+from repro_torch.serving.executor import make_executor
+from repro_torch.serving.speculative import SpecConfig
+
+
+def _pool_state(p):
+    return (p.table.tolist(), p.lens.tolist(), p.ref.tolist(),
+            p.external.tolist(), list(p.free))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_page_pool_matches_reference(seed):
+    """A random interleaving of grow / shrink / release / attach / retain /
+    release_ref / cow leaves both pools in the same state after every
+    step, and the port's invariants hold throughout."""
+    rng = np.random.default_rng(seed)
+    n_pages, P, n_slots = 12, 4, 4
+    cap = [n_pages * P, 10][seed % 2]            # position-indexed, or ring
+    pools = [jax_kv_pool.PagePool(n_pages, P, n_slots, cap),
+             kv_pool.PagePool(n_pages, P, n_slots, cap)]
+    for _ in range(300):
+        op = rng.choice(["grow", "shrink", "release", "attach", "retain",
+                         "release_ref", "cow"])
+        s = int(rng.integers(n_slots))
+        cur = int(pools[0].lens[s])
+        if op == "grow":
+            args = (s, cur + int(rng.integers(0, 9)))
+        elif op == "shrink":
+            args = (s, int(rng.integers(0, cur + 1)))
+        elif op == "release":
+            args = (s,)
+        elif op == "attach":
+            donors = [d for d in range(n_slots)
+                      if d != s and pools[0].lens[d] >= P]
+            if cur or not donors:
+                continue
+            d = donors[int(rng.integers(len(donors)))]
+            n = pools[0].pages_of(int(pools[0].lens[d]) // P * P)
+            args = (s, [int(x) for x in pools[0].table[d, :n]], n * P)
+        elif op in ("retain", "release_ref"):
+            live = [p for p in range(n_pages) if pools[0].ref[p] > 0
+                    and (op == "retain" or pools[0].external[p] > 0)]
+            if not live:
+                continue
+            args = (live[int(rng.integers(len(live)))],)
+        else:
+            rows = [r for r in range(pools[0].width)
+                    if pools[0].table[s, r] < n_pages]
+            if not rows or not pools[0].free:
+                continue
+            args = (s, rows[int(rng.integers(len(rows)))])
+        results = [getattr(p, op)(*args) for p in pools]
+        assert results[0] == results[1], (op, args)
+        assert _pool_state(pools[0]) == _pool_state(pools[1]), (op, args)
+        pools[1].check_invariants()
+
+
+def test_pack_chunks_matches_reference():
+    rng = np.random.default_rng(0)
+    for _ in range(200):
+        chunks = [(i, int(t)) for i, t in
+                  enumerate(rng.integers(0, 300, rng.integers(1, 6)))]
+        align = int(2 ** rng.integers(0, 8))
+        assert (dataclasses.asdict(scheduler.pack_chunks(chunks, align=align))
+                == dataclasses.asdict(jax_sched.pack_chunks(chunks,
+                                                            align=align)))
+    for n in range(0, 3000, 7):
+        assert scheduler.bucket_tokens(n, 8) == jax_sched.bucket_tokens(n, 8)
+        assert scheduler.bucket_pow2(n, 64) == jax_sched.bucket_pow2(n, 64)
+
+
+@pytest.mark.parametrize("strategy", ["halo", "cent", "attacc"])
+def test_plan_tick_matches_reference(strategy):
+    """The same waiting/decoding sets and pool headroom give the same plan
+    (chunks, groups, packing) in both schedulers."""
+    rng = np.random.default_rng(["halo", "cent", "attacc"].index(strategy))
+    kw = dict(strategy=strategy, max_decode_batch=4, prefill_chunk=16,
+              max_prefill_tokens=40, pack_align=8)
+    ours = scheduler.PhaseScheduler(scheduler.PhaseAwareConfig(**kw))
+    ref = jax_sched.PhaseScheduler(jax_sched.PhaseAwareConfig(**kw))
+    for _ in range(200):
+        n_wait = int(rng.integers(0, 5))
+        waiting = [(i, int(rng.integers(1, 60)), True,
+                    int(rng.integers(0, 30))) for i in range(n_wait)]
+        decoding = [10 + i for i in range(int(rng.integers(0, 5)))]
+        tkw = dict(free_pages=int(rng.integers(0, 20)), page_size=8,
+                   capacity=256)
+        a = ours.plan_tick(waiting, decoding, **tkw)
+        b = ref.plan_tick(waiting, decoding, **tkw)
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+
+
+def test_kv_pool_layout():
+    """Zero-initialized [L, n_pages, P, Hkv, D] pools per run, and block
+    tables whose unused rows are all-sentinel."""
+    cfg = dataclasses.replace(get_config("qwen3-8b").reduced(),
+                              dtype="float32")
+    pool = kv_pool.KVPool(cfg, n_slots=3, n_pages=10, page_size=4,
+                          device="cpu")
+    (c,) = pool.caches
+    shape = (cfg.n_layers, 10, 4, cfg.n_kv_heads, cfg.d_head)
+    assert tuple(c["k"].shape) == shape and tuple(c["v"].shape) == shape
+    assert not c["k"].any() and not c["v"].any()
+    assert pool.grow(1, 9)
+    (bt,) = pool.block_tables(rows=[1], n=2)
+    assert bt.dtype == torch.int32 and tuple(bt.shape) == (2, 10)
+    assert (bt[0, :3] < 10).all() and (bt[0, 3:] == 10).all()
+    assert (bt[1] == 10).all()
+    with pytest.raises(NotImplementedError, match="later slice"):
+        kv_pool.KVPool(cfg, n_slots=3, n_pages=10, page_size=4,
+                       kv_dtype="int8", device="cpu")
+
+
+def test_greedy_sampling_takes_the_first_maximum():
+    logits = torch.tensor([[[0.0, 3.0, 3.0, 1.0]], [[5.0, 5.0, 0.0, 5.0]]])
+    assert sampling.sample_greedy(logits).tolist() == [1, 0]
+    sampling.require_greedy(sampling.SamplingParams())
+    with pytest.raises(NotImplementedError, match="later slice"):
+        sampling.require_greedy(sampling.SamplingParams(temperature=0.7))
+
+
+def test_executor_counts_first_seen_shapes():
+    ex = make_executor("colocated", {"decode_paged": len, "packed_paged": len})
+    for shape in [(4,), (4,), (2,), (4,)]:
+        ex.begin_tick()
+        ex.note_compile("decode", "decode_paged", shape, True)
+    assert ex.compile_count == 2 and ex.tick_new_compiles == 0
+    assert ex.program("decode", "decode_paged") is len
+    with pytest.raises(NotImplementedError):
+        ex.program("prefill", "chunk")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        make_executor("disaggregated", {})
+
+
+def _tiny():
+    cfg = dataclasses.replace(get_config("llama2-7b").reduced(),
+                              dtype="float32")
+    return cfg, init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+@pytest.mark.parametrize("option", [
+    dict(paged=False), dict(paged=True, packed_prefill=False),
+    dict(paged=True, prefix_cache=True),
+    dict(paged=True, speculative=SpecConfig(k=2)),
+    dict(paged=True, host_spill_pages=4), dict(paged=True, kv_dtype="int8"),
+    dict(paged=True, weights_dtype="int8"),
+    dict(paged=True, executor="disaggregated")])
+def test_unported_options_raise(option):
+    cfg, params = _tiny()
+    with pytest.raises(NotImplementedError, match="item"):
+        ServingEngine(cfg, params, ServeConfig(**option), device="cpu")
+
+
+def test_engine_refuses_stochastic_requests():
+    cfg, params = _tiny()
+    eng = ServingEngine(cfg, params, ServeConfig(paged=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="stochastic"):
+        eng.submit(np.arange(5, dtype=np.int32),
+                   sampling=sampling.SamplingParams(temperature=1.0))
+
+
+def test_entry_points_never_fall_back_to_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    cfg, params = _tiny()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cfg, params, ServeConfig(paged=True))
+    assert resolve_device("cpu") == torch.device("cpu")

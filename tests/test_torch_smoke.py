@@ -1,0 +1,116 @@
+"""``chip_smoke.py`` and the port's CLI on the CPU: the smoke script
+refuses to run without a card or without the port beside it, its roofline
+bounds count exactly the work the inputs need, and ``launch/serve.py``
+serves on the plain path when asked for the CPU."""
+
+import math
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+import chip_smoke  # noqa: E402
+
+
+def test_smoke_needs_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main() != 0
+    assert '"ok"' not in capsys.readouterr().out
+
+
+def test_smoke_needs_the_port_beside_it(monkeypatch, tmp_path, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(chip_smoke, "SRC", tmp_path / "src")
+    assert chip_smoke.main() != 0
+    assert '"ok"' not in capsys.readouterr().out
+
+
+def test_decode_bound_counts_live_tokens(monkeypatch):
+    """Bytes: q in, out back, and K and V of every token before its length
+    on an allocated page (the sentinel page inside row 1 is not read)."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    H, Hkv, D, B, ctx = 8, 2, 16, 2, 100
+    q, k, v, bt, lengths = chip_smoke.decode_inputs(torch, H, Hkv, D, B, ctx,
+                                                    torch.float32, seed=0)
+    assert lengths.tolist() == [100, 63]
+    P = chip_smoke.PAGE
+    tokens = 100 + (63 - P)                       # row 1 skips its page 1
+    entries = math.ceil(100 / P) + math.ceil(63 / P)
+    nbytes = 2 * B * H * D * 4 + 2 * tokens * Hkv * D * 4 + 4 * (entries + B)
+    ms, by = chip_smoke.decode_cost(q, k, v, bt, lengths)
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
+def test_prefill_bound_counts_visible_pairs(monkeypatch):
+    """Operations: each real query against its segment's history and the
+    causal part of its own chunk; pad segments and stream tail excluded."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    H, Hkv, D, ctx = 4, 2, 16, 64
+    args, kw = chip_smoke.prefill_inputs(torch, H, Hkv, D, ctx,
+                                         torch.float32, seed=0)
+    lens, offs = [203, 77, 130, 45], [64, 37, 61, 0]
+    pairs = sum(n * o + n * (n + 1) // 2 for n, o in zip(lens, offs))
+    N, W = args[5].shape
+    nbytes = (sum(lens) * (2 * H + 2 * Hkv) * D * 4
+              + 2 * sum(offs) * Hkv * D * 4 + 4 * N * (3 + W))
+    flops = 4.0 * pairs * H * D
+    t_ops = flops / chip_smoke.PEAK_FLOPS["float32"] * 1e3
+    t_bytes = nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3
+    assert t_ops > t_bytes
+    ms, by = chip_smoke.prefill_cost(args, kw)
+    assert by == "operations" and ms == pytest.approx(t_ops)
+    # the plain version masks every NaN-poisoned slot the inputs carry
+    from repro_torch.kernels import ref
+    out = ref.packed_prefill_attention_ref(*args, **kw)
+    assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.parametrize("name,H,Hkv", [
+    ("paged_decode_attention", 32, 8), ("paged_decode_attention", 32, 32),
+    ("packed_prefill_attention", 32, 8)])
+def test_bf16_tolerance_fails_a_dropped_tile(monkeypatch, name, H, Hkv):
+    """The bf16 check passes the plain version run with unrounded (f32)
+    softmax weights, which differs from the bf16 one by p rounding alone,
+    and fails a result that skipped two pages (32 keys): of every
+    sequence's 1963-token walk in decode, of the 4096-token history of the
+    first segment in prefill, whose stream also holds rows that see only a
+    few keys."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    from repro_torch.kernels import ref
+    if name == "paged_decode_attention":
+        plain, kw = ref.paged_decode_attention_ref, {}
+        args = chip_smoke.decode_inputs(torch, H, Hkv, 128, 4, 1963,
+                                        torch.bfloat16, seed=3)
+        bt_at, rows, n_pages = 3, slice(None), args[1].shape[0]
+    else:
+        plain = ref.packed_prefill_attention_ref
+        args, kw = chip_smoke.prefill_inputs(torch, H, Hkv, 128, 4096,
+                                             torch.bfloat16, seed=3)
+        bt_at, rows, n_pages = 5, 0, args[3].shape[0]
+    want = plain(*args, **kw)
+    abs_ctx = chip_smoke.abs_context(plain, name, args, kw)
+    f32 = [x.float() if x.is_floating_point() else x for x in args]
+    f32_p = plain(*f32, **kw).to(torch.bfloat16)
+    assert chip_smoke.close(torch, f32_p, want, "bfloat16", abs_ctx)[1]
+    dropped = list(args)
+    dropped[bt_at] = args[bt_at].clone()
+    dropped[bt_at][rows, 40:42] = n_pages       # sentinel: never read
+    got = plain(*dropped, **kw)
+    assert not chip_smoke.close(torch, got, want, "bfloat16", abs_ctx)[1]
+
+
+def test_serve_cli_on_cpu(capsys):
+    from repro_torch.launch import serve
+    assert serve.main(["--arch", "qwen3-8b", "--reduced", "--device", "cpu",
+                       "--requests", "3", "--prompt-len", "20",
+                       "--max-new", "5", "--prefill-chunk", "8",
+                       "--page-size", "8", "--n-pages", "16"]) == 0
+    out = capsys.readouterr().out
+    assert "requests=3 tokens=15" in out
+    assert "paged_decode_attention=0 packed_prefill_attention=0" in out
+    assert np.isfinite(float(out.split("TTFT p50=")[1].split("ms")[0]))
