@@ -13,30 +13,39 @@ Phases, one JSON line each:
    ``nvcc`` (one process per source, all started together), with seconds.
 3. ``kernel``  — each kernel against its plain version on the card, per
    dtype and shape set: qwen3-8b (H=32, Hkv=8, D=128) and llama2-7b (H=32,
-   Hkv=32) geometry, page size 16, contexts 512 and 4096; paged decode at
-   batch 1 and 4, packed prefill on a pack_align=8 stream of four segments
-   with history.  Tolerances: f32 |err| <= 1e-4; bf16, per element,
-   |err| <= 2^-7 A + 2^-6 |ref|, where A is the plain version's f32 result
-   with every V row replaced by its absolute value (sum_i p_i |v_i|).  Both
-   sides round the softmax weights p to bf16 before P.V, each p by at most
-   one bf16 unit roundoff (2^-8), which moves the result by at most
-   2^-8 A per side; both round the output to bf16, and the kernel divides
-   by a sum of rounded p, each at most 2^-8 |ref|.  The bound is that
-   worst case and no looser, so a result that skipped one 32-key tile of a
-   2k-token walk fails it.  Times are CUDA
+   Hkv=32) geometry, page size 16, contexts 512 and 4096; paged decode
+   (float and packed-int4 pages, with a sentinel page and NaN on every
+   masked row) at batch 1 and 4, packed prefill on a pack_align=8 stream
+   of four segments with history, and the int8 GEMV at every (K, N) of the
+   two models' layers for M = 1, 4 and 32 rows.  Tolerances: f32 |err| <=
+   1e-4; bf16 (see ``tolerance``) for paged decode and packed prefill, per
+   element, |err| <= 2^-7 A + 2^-6 |ref|, where A is the plain version's
+   f32 result with every V row replaced by its absolute value (sum_i p_i
+   |v_i|).  Both sides round the softmax weights p to bf16 before P.V,
+   each p by at most one bf16 unit roundoff (2^-8), which moves the result
+   by at most 2^-8 A per side; both round the output to bf16, and the
+   kernel divides by a sum of rounded p, each at most 2^-8 |ref|.  The
+   bound is that worst case and no looser, so a result that skipped one
+   32-key tile of a 2k-token walk fails it.  The int8 GEMV and the int4
+   decode compute in f32 throughout, so their bf16 bound is one output
+   rounding per side plus the f32 summation term: |err| <= 2^-7 |ref| +
+   (2n + 2) 2^-24 A over n summed terms.  Times are CUDA
    events, median of 20 launches, L2 flushed between launches; ``bound_ms``
    is the larger of the bytes the call must move over 3.35 TB/s and its
    operations over the peak rate of its type (989 TFLOP/s bf16, 67 TFLOP/s
-   f32); ``library_ms`` times one ``scaled_dot_product_attention`` call on
-   the pre-gathered dense K/V with a boolean mask — a yardstick only, never
-   used by the port.
+   f32); ``library_ms`` times one library call on the same inputs — for
+   attention ``scaled_dot_product_attention`` on the pre-gathered dense K/V
+   (dequantized beforehand for int4) with a boolean mask, for the GEMV
+   ``torch.matmul`` on the weight dequantized beforehand — a yardstick
+   only, never used by the port.
 4. ``serve``   — ``ServingEngine`` on qwen3-8b at full width and all 36
    layers in bf16 (random weights from a seeded ``torch.Generator`` on the
    card): paged pool (page 16, 1024 pages), max_batch 4, default
    ``PhaseAwareConfig`` (halo, prefill_chunk 2048, pack_align 8), prompts of
    1900, 1000, 333 and 37 tokens, 64 new tokens each.  Every request must
    finish, no logit may be NaN, and each kernel's launch count must equal
-   n_layers x the prefill (resp. decode) steps.  The four requests run
+   n_layers x the prefill (resp. decode) steps, and 0 for the kernels off
+   this path.  The four requests run
    three times (rounds) to show the call's spread; the headline TTFT and
    TPOT are the medians over rounds.  Each kernel is then checked and timed
    again at the exact inputs the main path gave it (bf16), and checked once
@@ -44,16 +53,27 @@ Phases, one JSON line each:
    says where one more round's time goes under ``torch.profiler`` (device
    busy time, top kernels) and estimates the device's idle share as one
    minus that busy time over the unprofiled rounds' median wall time.
-5. ``preempt`` — the same model cut to 4 layers, with a pool small enough
+5. ``serve_quantized`` — the same model and prompts with int8 weights and
+   packed-int4 KV pages (HALO's decode datapath), two rounds: the int8 GEMV
+   must launch 7 x n_layers times per decode step (wq, wk, wv, wo and the
+   three FFN matmuls), the int4 decode kernel n_layers times per decode
+   step, the packed-prefill kernel (over the pool dequantized to bf16)
+   n_layers times per prefill step, the float decode kernel never; each
+   kernel is re-checked at the main path's inputs as in ``serve``, and a
+   ``profile`` line (``"of": "serve_quantized"``) follows as for ``serve``.
+6. ``preempt`` — the same model cut to 4 layers, with a pool small enough
    to force preemptions; every request must finish.
-6. ``parity``  — reduced llama2-7b and qwen3-8b in f32, one engine on
-   ``cuda`` (kernels) and one on ``cpu`` (plain versions), same weights:
-   equal tick logs, and equal greedy streams up to the first position
-   where the CPU run's top-2 logit margin is at most 1e-3.
+7. ``parity``  — reduced llama2-7b and qwen3-8b in f32, one engine on
+   ``cuda`` (kernels) and one on ``cpu`` (plain versions), same weights,
+   f32 KV (with and without a forced preemption) and int8 KV: equal tick
+   logs, and equal greedy streams up to the first position where the CPU
+   run's own top-2 logit margin, recorded as it served, is at most 1e-3.
 
-Then one ``{"kernels": [...]}`` line (launches from the serve phase, times
-at its inputs in bf16, ``max_abs_err`` from the f32 check at those inputs
-and ``max_abs_err_bf16`` from the bf16 one), the ``nvidia-smi`` line, and
+Then one ``{"kernels": [...]}`` line (launches from the serve phase whose
+main path runs the kernel — ``serve_quantized`` for the GEMV and the int4
+decode, whose times sum one layer's seven GEMV calls — times at its inputs
+in bf16, ``max_abs_err`` from the f32 check at those inputs and
+``max_abs_err_bf16`` from the bf16 one), the ``nvidia-smi`` line, and
 as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the last
 line is never printed and the exit code is not 0.  Without a CUDA device,
@@ -63,6 +83,7 @@ or without the repository's ``src/`` beside it, the script exits non-zero.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -83,6 +104,7 @@ TOL = {"float32": dict(atol=1e-4, rtol=0.0, p_abs=0.0),
 PAGE = 16
 ITERS = 20
 ROUNDS = 3                # serve rounds of the same four requests
+ROUNDS_QUANTIZED = 2      # serve_quantized rounds of them
 DEV = "cuda"              # the card; the input builders allocate here
 FAILED = []               # kernel checks that disagreed (raised per phase)
 
@@ -142,11 +164,11 @@ def dtype_name(t) -> str:
     return str(t.dtype).replace("torch.", "")
 
 
-def close(torch, got, ref, dt: str, abs_ctx=None):
-    """(max |got - ref|, within ``TOL[dt]``, the element whose error is
-    the largest share of its bound) over every element; ``abs_ctx`` is A,
-    needed where ``TOL[dt]["p_abs"]`` is not 0."""
-    tol = TOL[dt]
+def close(torch, got, ref, dt: str, abs_ctx=None, tol=None):
+    """(max |got - ref|, within ``tol`` (default ``TOL[dt]``), the element
+    whose error is the largest share of its bound) over every element;
+    ``abs_ctx`` is A, needed where ``tol["p_abs"]`` is not 0."""
+    tol = TOL[dt] if tol is None else tol
     g, r = got.float(), ref.float()
     if not bool(torch.isfinite(g).all()):
         return float("inf"), False, None
@@ -352,43 +374,187 @@ def prefill_library(torch, args, kw):
 
 
 # ---------------------------------------------------------------------------
+# int8 GEMV (B3)
+# ---------------------------------------------------------------------------
+
+# the (K, N) of every matmul the two models route through the GEMV under
+# int8 weights: wq/wo, wk/wv (qwen3-8b: 8 kv heads), the FFN's gate/up and
+# down projections (qwen3-8b 12288, llama2-7b 11008 — not a multiple of the
+# kernel's 128-column tile)
+GEMV_SHAPES = {"qwen3-8b": [(4096, 4096), (4096, 1024), (4096, 12288),
+                            (12288, 4096)],
+               "llama2-7b": [(4096, 4096), (4096, 11008), (11008, 4096)]}
+
+
+def gemv_inputs(torch, M, K, N, dtype, seed, quantized=True):
+    """x [M, K] in ``dtype`` and a fan-in-scaled normal weight: quantized
+    to int8 per output channel, as the engine serves it, or (the kernel's
+    float variant) in x's dtype with no scale."""
+    from repro_torch.serving.quantized_weights import quantize_weight
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    w = torch.randn((K, N), device=DEV, generator=g) / K ** 0.5
+    x = torch.randn((M, K), device=DEV, generator=g).to(dtype)
+    if not quantized:
+        return x, w.to(dtype), None
+    w = quantize_weight(w)
+    return x, w["q"], w["scale"]
+
+
+def gemv_cost(x, w, scale):
+    M, K = x.shape
+    N = w.shape[1]
+    el = x.element_size()
+    nbytes = (w.numel() * w.element_size() + (0 if scale is None else 4 * N)
+              + (M * K + M * N) * el)
+    return bound(nbytes, 2.0 * M * K * N, dtype_name(x))
+
+
+def gemv_dequantized(x, w, scale):
+    """The weight in f32, its scale applied."""
+    return w.float() if scale is None else w.float() * scale.float()
+
+
+def gemv_library(torch, x, w, scale):
+    """``torch.matmul`` on the weight dequantized to x's dtype beforehand
+    (a yardstick only)."""
+    wd = gemv_dequantized(x, w, scale).to(x.dtype)
+    return lambda: torch.matmul(x, wd)
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention over packed-int4 pages (B4)
+# ---------------------------------------------------------------------------
+
+def q4_inputs(torch, H, Hkv, D, B, ctx, dtype, seed):
+    """B1's ragged batch (``decode_inputs``) with its pool quantized to
+    int4 per (token, kv head) and packed; the scales of every masked row
+    (past a length, on the unused page the sentinel clamps to) are NaN."""
+    from repro_torch.serving.quantized_cache import (pack_int4,
+                                                     quantize_token_int4)
+    q, k, v, bt, lengths = decode_inputs(torch, H, Hkv, D, B, ctx,
+                                         torch.float32, seed)
+    masked = torch.isnan(k[..., 0])
+    kq, ks = quantize_token_int4(torch.nan_to_num(k))
+    vq, vs = quantize_token_int4(torch.nan_to_num(v))
+    ks[masked] = float("nan")
+    vs[masked] = float("nan")
+    return (q.to(dtype), pack_int4(kq), ks, pack_int4(vq), vs, bt, lengths)
+
+
+def q4_dequantized(torch, q, kp, ks, vp, vs):
+    """The int4 pool dequantized to f32 [n_pages, P, Hkv, D] per side."""
+    from repro_torch.serving.quantized_cache import dequantize, unpack_int4
+    return (dequantize(unpack_int4(kp), ks), dequantize(unpack_int4(vp), vs))
+
+
+def q4_cost(q, kp, ks, vp, vs, bt, lengths):
+    """B1's count with (D/2 + 4) bytes per live token and kv head a side."""
+    B, H, D = q.shape
+    n_pages, P, Hkv, _ = kp.shape
+    el = q.element_size()
+    bt, lengths = bt.cpu().tolist(), lengths.cpu().tolist()
+    tokens = entries = 0
+    for b in range(B):
+        walk = min(-(-lengths[b] // P), len(bt[b]))
+        entries += walk
+        tokens += sum(min(P, lengths[b] - i * P) for i in range(walk)
+                      if bt[b][i] < n_pages)
+    nbytes = (2 * q.numel() * el + 2 * tokens * Hkv * (D // 2 + 4)
+              + 4 * (entries + B))
+    return bound(nbytes, 4.0 * tokens * H * D, dtype_name(q))
+
+
+def q4_library(torch, q, kp, ks, vp, vs, bt, lengths):
+    """``decode_library`` on the pool dequantized to q's dtype beforehand
+    (a yardstick only)."""
+    kf, vf = q4_dequantized(torch, q, kp, ks, vp, vs)
+    return decode_library(torch, q, kf.to(q.dtype), vf.to(q.dtype), bt,
+                          lengths)
+
+
+def tolerance(torch, name, args, kw, dt):
+    """(tolerance, A) of one check.  f32: |err| <= 1e-4.  bf16, B1 and B2:
+    ``TOL["bfloat16"]`` (see the module docstring).  bf16, B3 and B4: both
+    sides compute in f32 from the same values (bf16 x or q widen exactly;
+    int8 and int4 codes times their scales are the same f32 products), and
+    each f32 sum of n terms is off by at most n 2^-24 times the sum of
+    their magnitudes A, so the two differ by at most 2n 2^-24 A, plus a
+    term of exp and division per p in B4 that (n + 1) covers; each side
+    then rounds once to bf16, at most half an ulp, 2^-8 |ref| — so |err|
+    <= 2^-7 |ref| + (2n + 2) 2^-24 A, with n = K for B3 (A = |x| @ |w|
+    times the scale) and n = the longest length for B4 (A = sum_i p_i
+    |v_i|).  B4 keeps p in f32, so no p-rounding term enters."""
+    if dt == "float32" or name in ("paged_decode_attention",
+                                   "packed_prefill_attention"):
+        if not TOL[dt]["p_abs"]:
+            return TOL[dt], None
+        plain = ref_of(name)
+        return TOL[dt], abs_context(plain, name, args, kw)
+    from repro_torch.kernels import ref
+    if name == "gemv":
+        x = args[0]
+        n = x.shape[1]
+        A = x.float().abs() @ gemv_dequantized(*args).abs()
+    else:
+        q, kp, ks, vp, vs, bt, lengths = args
+        n = int(lengths.max())
+        kf, vf = q4_dequantized(torch, q, kp, ks, vp, vs)
+        A = ref.paged_decode_attention_ref(q.float(), kf, vf.abs(), bt,
+                                           lengths)
+    return dict(atol=0.0, rtol=2.0 ** -7, p_abs=(2 * n + 2) * 2.0 ** -24), A
+
+
+# ---------------------------------------------------------------------------
 # one kernel check: kernel vs plain version, times, bound
 # ---------------------------------------------------------------------------
+
+def ref_of(name):
+    from repro_torch.kernels import ref
+    return {"paged_decode_attention": ref.paged_decode_attention_ref,
+            "packed_prefill_attention": ref.packed_prefill_attention_ref,
+            "gemv": ref.gemv_ref,
+            "paged_decode_attention_q4": ref.paged_decode_attention_q4_ref,
+            }[name]
+
+
+def cost_and_library(torch, name, args, kw):
+    if name == "paged_decode_attention":
+        return decode_cost(*args), decode_library(torch, *args)
+    if name == "packed_prefill_attention":
+        return prefill_cost(args, kw), prefill_library(torch, args, kw)
+    if name == "gemv":
+        return gemv_cost(*args), gemv_library(torch, *args)
+    return q4_cost(*args), q4_library(torch, *args)
+
+
+LIBRARY = {"gemv": "torch.matmul on the weight dequantized to x's dtype "
+                   "beforehand (yardstick only)",
+           "paged_decode_attention_q4": "scaled_dot_product_attention on "
+                                        "pre-gathered K/V dequantized to "
+                                        "q's dtype (yardstick only)"}
 
 def check_kernel(torch, timer, name, args, kw, label, timed=True):
     """Kernel against its plain version on ``args``; with ``timed``, also
     the CUDA-event times of kernel, plain version and library call."""
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
-
-    if name == "paged_decode_attention":
-        kernel, plain = da.paged_decode_attention, ref.paged_decode_attention_ref
-    else:
-        kernel = fa.packed_prefill_attention
-        plain = ref.packed_prefill_attention_ref
+    kernel, plain = kernel_functions()[name], ref_of(name)
     dt = dtype_name(args[0])
     got = kernel(*args, **kw)
     want = plain(*args, **kw)
     torch.cuda.synchronize()
-    abs_ctx = (abs_context(plain, name, args, kw) if TOL[dt]["p_abs"]
-               else None)
-    err, ok, worst = close(torch, got, want, dt, abs_ctx)
-    row = dict(name=name, shape=label, dtype=dt, max_abs_err=err, tol=TOL[dt],
+    tol, abs_ctx = tolerance(torch, name, args, kw, dt)
+    err, ok, worst = close(torch, got, want, dt, abs_ctx, tol)
+    row = dict(name=name, shape=label, dtype=dt, max_abs_err=err, tol=tol,
                worst_element=worst)
     if timed:
-        if name == "paged_decode_attention":
-            bound_ms, bound_by = decode_cost(*args)
-            library = decode_library(torch, *args)
-        else:
-            bound_ms, bound_by = prefill_cost(args, kw)
-            library = prefill_library(torch, args, kw)
+        (bound_ms, bound_by), library = cost_and_library(torch, name, args,
+                                                         kw)
         row.update(kernel_ms=timer(lambda: kernel(*args, **kw)),
                    plain_ms=timer(lambda: plain(*args, **kw)),
                    bound_ms=bound_ms, bound_by=bound_by,
                    library_ms=timer(library),
-                   library="scaled_dot_product_attention on pre-gathered "
-                           "dense K/V (yardstick only)")
+                   library=LIBRARY.get(
+                       name, "scaled_dot_product_attention on pre-gathered "
+                             "dense K/V (yardstick only)"))
     emit("kernel", **row, ok=ok)
     if not ok:
         FAILED.append(f"{name} [{label}, {dt}]: max |err| {err}")
@@ -410,6 +576,24 @@ def kernel_phase(torch, timer):
                 args, kw = prefill_inputs(torch, H, Hkv, D, ctx, dtype, seed)
                 check_kernel(torch, timer, "packed_prefill_attention", args,
                              kw, f"{model} 4 segments, history<={ctx}")
+                for B in (1, 4):
+                    seed += 1
+                    args = q4_inputs(torch, H, Hkv, D, B, ctx, dtype, seed)
+                    check_kernel(torch, timer, "paged_decode_attention_q4",
+                                 args, {}, f"{model} B={B} ctx={ctx}")
+            for K, N in GEMV_SHAPES[model]:
+                for M in (1, 4, 32):
+                    seed += 1
+                    args = gemv_inputs(torch, M, K, N, dtype, seed)
+                    check_kernel(torch, timer, "gemv", args, {},
+                                 f"{model} M={M} K={K} N={N}")
+            # the float variant (weights in x's dtype, no scale): off the
+            # serving path, held all the same
+            K, N = GEMV_SHAPES[model][-1]
+            seed += 1
+            args = gemv_inputs(torch, 4, K, N, dtype, seed, quantized=False)
+            check_kernel(torch, timer, "gemv", args, {},
+                         f"{model} M=4 K={K} N={N}, float weights")
     require_all_agree("kernel")
 
 
@@ -425,28 +609,31 @@ def require_all_agree(phase: str) -> None:
 # ---------------------------------------------------------------------------
 
 class MainPathProbe:
-    """Wraps the model entry points the engine calls and the two kernel
+    """Wraps the model entry points the engine calls and the kernel
     wrappers for the length of a ``with`` block: checks every logit
     tensor for NaN (one device flag, read once), counts prefill and decode
-    steps, and keeps the inputs of the first packed-prefill launch and of
-    the last decode step's first-layer launch — the shapes the main path
-    gives each kernel — for the checks after the run.  The kernels' own
-    ``launches`` counters are untouched by it."""
+    steps, and keeps the inputs the main path gave each kernel for the
+    checks after the run — the first packed-prefill launch, and of the
+    last decode step the first layer's decode attention launch and its
+    ``GEMV_PER_LAYER`` GEMV calls (wq, wk, wv, wo, gate, up, down).  The
+    kernels' own ``launches`` counters are untouched by it."""
+
+    GEMV_PER_LAYER = 7
 
     def __init__(self, torch, n_layers: int):
         self.torch, self.n_layers = torch, n_layers
         self.nan = torch.zeros((), dtype=torch.bool, device=DEV)
         self.steps = {"prefill": 0, "decode": 0}
-        self.calls = {"paged_decode_attention": 0,
-                      "packed_prefill_attention": 0}
-        self.inputs = {}
+        self.calls = {name: 0 for name in kernel_functions()}
+        self.inputs = {}       # name -> {call within the layer: (args, kw)}
 
     def __enter__(self):
         from repro_torch.kernels import ops
         from repro_torch.serving import engine as eng
         self._saved = [(eng, "forward", eng.forward),
                        (eng, "forward_chunk_packed", eng.forward_chunk_packed),
-                       (ops, "_da", ops._da), (ops, "_fa", ops._fa)]
+                       (ops, "_da", ops._da), (ops, "_fa", ops._fa),
+                       (ops, "_gemv", ops._gemv)]
 
         def model(fn, step):
             def wrapped(*a, **k):
@@ -456,14 +643,15 @@ class MainPathProbe:
                 return out
             return wrapped
 
-        def kernel(fn, name, clone):
+        def kernel(fn, name, clone, per_layer=1):
             def wrapped(*a, **k):
                 i = self.calls[name]
                 self.calls[name] += 1
-                if i % self.n_layers == 0 and (name not in self.inputs
-                                               or not clone):
-                    self.inputs[name] = (
-                        tuple(x.clone() if clone else x for x in a), dict(k))
+                j = i % (self.n_layers * per_layer)
+                kept = self.inputs.setdefault(name, {})
+                if j < per_layer and (j not in kept or not clone):
+                    kept[j] = (tuple(x.clone() if clone else x for x in a),
+                               dict(k))
                 return fn(*a, **k)
             return wrapped
 
@@ -472,13 +660,20 @@ class MainPathProbe:
         # the dispatcher reaches the kernel wrappers through its module
         # handles; stand-ins there leave the wrappers (and their counts)
         # untouched.  Decode: the last step's pool is final (written before
-        # it is read and never after), so references suffice; prefill pools
-        # change after the first launch, so its inputs are copied once.
-        ops._da = types.SimpleNamespace(paged_decode_attention=kernel(
-            ops._da.paged_decode_attention, "paged_decode_attention", False))
+        # it is read and never after) and a GEMV's inputs are never written
+        # again, so references suffice; prefill pools change after the
+        # first launch, so its inputs are copied once.
+        ops._da = types.SimpleNamespace(
+            paged_decode_attention=kernel(ops._da.paged_decode_attention,
+                                          "paged_decode_attention", False),
+            paged_decode_attention_q4=kernel(
+                ops._da.paged_decode_attention_q4,
+                "paged_decode_attention_q4", False))
         ops._fa = types.SimpleNamespace(packed_prefill_attention=kernel(
             ops._fa.packed_prefill_attention, "packed_prefill_attention",
             True))
+        ops._gemv = types.SimpleNamespace(gemv=kernel(
+            ops._gemv.gemv, "gemv", False, self.GEMV_PER_LAYER))
         return self
 
     def __exit__(self, *exc):
@@ -490,8 +685,11 @@ class MainPathProbe:
 def kernel_functions():
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemv_cid as gc
     return {"paged_decode_attention": da.paged_decode_attention,
-            "packed_prefill_attention": fa.packed_prefill_attention}
+            "packed_prefill_attention": fa.packed_prefill_attention,
+            "gemv": gc.gemv,
+            "paged_decode_attention_q4": da.paged_decode_attention_q4}
 
 
 def make_engine(torch, cfg, params, device, **sc_kw):
@@ -521,11 +719,104 @@ def serve_round(reqs, log, wall_s):
                               / decode_wall if decode_wall else None))
 
 
-def serve_phase(torch, timer):
+def serve_rounds(torch, eng, prompts, n_rounds, n_layers):
+    """The main path: the first prompt as a short warm-up request (cuBLAS
+    handles, allocator; not counted), then the peak-memory statistic and
+    every kernel's count set to 0 and the other prompts served
+    ``n_rounds`` times under the probe.  Returns the rounds' numbers, the
+    probe, each kernel's launches and the steps' tick records."""
+    from repro_torch.serving.sampling import SamplingParams
+
+    warm, prompts = prompts[0], prompts[1:]
+    eng.generate([warm], SamplingParams(max_new_tokens=2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ticks0 = eng.n_ticks
+    fns = kernel_functions()
+    for fn in fns.values():
+        fn.launches = 0
+    rounds, unfinished = [], False
+    with MainPathProbe(torch, n_layers) as probe:
+        for _ in range(n_rounds):
+            t1, n1 = time.monotonic(), eng.n_ticks
+            reqs = eng.generate(prompts, SamplingParams(max_new_tokens=64))
+            torch.cuda.synchronize()
+            wall_s = time.monotonic() - t1
+            unfinished |= any(r.state.value != "done"
+                              or len(r.generated) != 64 for r in reqs)
+            rounds.append(serve_round(
+                reqs, list(eng.tick_log)[-(eng.n_ticks - n1):], wall_s))
+    launches = {name: fn.launches for name, fn in fns.items()}
+    log = list(eng.tick_log)[-(eng.n_ticks - ticks0):]
+    if unfinished:
+        raise AssertionError("not every request finished its 64 tokens")
+    if bool(probe.nan):
+        raise AssertionError("a logit was NaN")
+    if probe.steps["decode"] != len([t for t in log if t.decode_reqs]):
+        raise AssertionError("decode steps != ticks that decoded")
+    return rounds, probe, launches, log
+
+
+def require_launches(phase, launches, expect):
+    """Each kernel launched exactly as often as the main path's steps
+    say: > 0 where it is on the path, 0 where it is not."""
+    for name, n in expect.items():
+        if launches[name] != n or (n == 0) != (name not in ON_PATH[phase]):
+            raise AssertionError(f"{phase}: {name} launched {launches[name]} "
+                                 f"times, expected {n}")
+
+
+# the kernels each serve phase's main path runs
+ON_PATH = {"serve": ("paged_decode_attention", "packed_prefill_attention"),
+           "serve_quantized": ("gemv", "paged_decode_attention_q4",
+                               "packed_prefill_attention")}
+
+
+def free_device_memory(torch):
+    """Return a finished phase's tensors to the card: an engine and its
+    executor's program table refer to each other, so ``del`` alone leaves
+    them to the cycle collector."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_prompts(cfg):
+    """A 24-token warm-up prompt, then the four served prompts."""
     import numpy as np
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+            for n in (24, 1900, 1000, 333, 37)]
+
+
+def serve_row(torch, cfg, prompts, rounds, probe, launches, log, **extra):
+    return dict(model=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype,
+                prompts=[len(p) for p in prompts[1:]], max_new_tokens=64,
+                rounds=rounds, steps=len(log),
+                prefill_steps=probe.steps["prefill"],
+                decode_steps=probe.steps["decode"],
+                ttft_ms_median=median([r["ttft_ms_median"] for r in rounds]),
+                tpot_ms_median=median([r["tpot_ms_median"] for r in rounds]),
+                decode_tok_s_median=median([r["decode_tok_s"]
+                                            for r in rounds]),
+                launches=launches,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                **extra)
+
+
+def recheck(torch, timer, name, args, kw, launches, label):
+    """A kernel at inputs the main path gave it: checked and timed in the
+    path's dtype, and checked again on the inputs cast to f32."""
+    row = check_kernel(torch, timer, name, args, kw, label)
+    row["launches"] = launches
+    f32 = tuple(x.float() if x.is_floating_point() else x for x in args)
+    row["f32"] = check_kernel(torch, timer, name, f32, kw,
+                              label + ", cast to f32", timed=False)
+    return row
+
+
+def serve_phase(torch, timer):
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params
-    from repro_torch.serving.sampling import SamplingParams
 
     cfg = dataclasses.replace(get_config("qwen3-8b"), dtype="bfloat16")
     t0 = time.monotonic()
@@ -535,74 +826,91 @@ def serve_phase(torch, timer):
     t_init = time.monotonic() - t0
     eng = make_engine(torch, cfg, params, DEV, max_batch=4,
                       page_size=PAGE, n_pages=1024)
-    rng = np.random.default_rng(0)
-    # warm-up (cuBLAS handles, allocator): one short request, not counted
-    eng.generate([rng.integers(0, cfg.vocab_size, 24, dtype=np.int32)],
-                 SamplingParams(max_new_tokens=2))
-    torch.cuda.synchronize()
-    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
-               for n in (1900, 1000, 333, 37)]
-    ticks0 = eng.n_ticks
-    fns = kernel_functions()
-    for fn in fns.values():
-        fn.launches = 0
-    rounds, unfinished = [], False
+    prompts = serve_prompts(cfg)
     t0 = time.monotonic()
-    with MainPathProbe(torch, cfg.n_layers) as probe:
-        for _ in range(ROUNDS):
-            t1, n1 = time.monotonic(), eng.n_ticks
-            reqs = eng.generate(prompts, SamplingParams(max_new_tokens=64))
-            torch.cuda.synchronize()
-            wall_s = time.monotonic() - t1
-            unfinished |= any(r.state.value != "done"
-                              or len(r.generated) != 64 for r in reqs)
-            rounds.append(serve_round(
-                reqs, list(eng.tick_log)[-(eng.n_ticks - n1):], wall_s))
-    wall = time.monotonic() - t0
-    launches = {name: fn.launches for name, fn in fns.items()}
-    log = list(eng.tick_log)[-(eng.n_ticks - ticks0):]
-    decode_ticks = [t for t in log if t.decode_reqs]
-    row = dict(model=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype,
-               prompts=[len(p) for p in prompts], max_new_tokens=64,
-               init_s=t_init, rounds=rounds, wall_s=wall, steps=len(log),
-               prefill_steps=probe.steps["prefill"],
-               decode_steps=probe.steps["decode"],
-               ttft_ms_median=median([r["ttft_ms_median"] for r in rounds]),
-               tpot_ms_median=median([r["tpot_ms_median"] for r in rounds]),
-               decode_tok_s_median=median([r["decode_tok_s"] for r in rounds]),
-               launches=launches, preemptions=eng.preemptions,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    emit("serve", **row)
-    if unfinished:
-        raise AssertionError("serve: not every request finished its 64 tokens")
-    if bool(probe.nan):
-        raise AssertionError("serve: a logit was NaN")
-    if probe.steps["decode"] != len(decode_ticks):
-        raise AssertionError("serve: decode steps != ticks that decoded")
+    rounds, probe, launches, log = serve_rounds(torch, eng, prompts, ROUNDS,
+                                                cfg.n_layers)
+    emit("serve", **serve_row(torch, cfg, prompts, rounds, probe, launches, log,
+                              init_s=t_init, wall_s=time.monotonic() - t0,
+                              preemptions=eng.preemptions))
     L = cfg.n_layers
-    expect = {"packed_prefill_attention": L * probe.steps["prefill"],
-              "paged_decode_attention": L * probe.steps["decode"]}
-    for name, n in expect.items():
-        if launches[name] != n or n == 0:
-            raise AssertionError(f"serve: {name} launched {launches[name]} "
-                                 f"times, expected {n} (> 0)")
-    main = {}
-    for name, (args, kw) in probe.inputs.items():
-        main[name] = check_kernel(torch, timer, name, args, kw,
-                                  "serve main path")
-        main[name]["launches"] = launches[name]
-        f32 = tuple(x.float() if x.is_floating_point() else x for x in args)
-        main[name]["f32"] = check_kernel(torch, timer, name, f32, kw,
-                                         "serve main path, cast to f32",
-                                         timed=False)
+    require_launches("serve", launches, {
+        "packed_prefill_attention": L * probe.steps["prefill"],
+        "paged_decode_attention": L * probe.steps["decode"],
+        "gemv": 0, "paged_decode_attention_q4": 0})
+    main = {name: recheck(torch, timer, name, *probe.inputs[name][0],
+                          launches[name], "serve main path")
+            for name in ON_PATH["serve"]}
     require_all_agree("serve")
-    profile_phase(torch, eng, prompts, median([r["wall_s"] for r in rounds]))
+    profile_phase(torch, eng, prompts[1:],
+                  median([r["wall_s"] for r in rounds]))
     del eng, params, probe
-    torch.cuda.empty_cache()
+    free_device_memory(torch)
     return main
 
 
-def profile_phase(torch, eng, prompts, round_wall_s):
+def serve_quantized_phase(torch, timer):
+    """The serve phase's model and prompts under HALO's decode datapath:
+    int8 weights (per output channel, quantized at engine build) and
+    packed-int4 KV pages.  Decode matmuls run in the int8 GEMV, decode
+    attention in the int4 paged decode kernel, prefill attention in the
+    packed-prefill kernel over the pool dequantized to bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(get_config("qwen3-8b"), dtype="bfloat16")
+    t0 = time.monotonic()
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    eng = make_engine(torch, cfg, init_params(cfg, gen, DEV), DEV,
+                      max_batch=4, page_size=PAGE, n_pages=1024,
+                      weights_dtype="int8", kv_dtype="int4")
+    torch.cuda.synchronize()          # the bf16 matmul weights are freed
+    torch.cuda.empty_cache()
+    t_init = time.monotonic() - t0
+    prompts = serve_prompts(cfg)
+    t0 = time.monotonic()
+    rounds, probe, launches, log = serve_rounds(torch, eng, prompts,
+                                                ROUNDS_QUANTIZED,
+                                                cfg.n_layers)
+    emit("serve_quantized", **serve_row(
+        torch, cfg, prompts, rounds, probe, launches, log, weights_dtype="int8",
+        kv_dtype="int4", init_s=t_init, wall_s=time.monotonic() - t0,
+        preemptions=eng.preemptions))
+    L = cfg.n_layers
+    require_launches("serve_quantized", launches, {
+        "gemv": MainPathProbe.GEMV_PER_LAYER * L * probe.steps["decode"],
+        "paged_decode_attention_q4": L * probe.steps["decode"],
+        "packed_prefill_attention": L * probe.steps["prefill"],
+        "paged_decode_attention": 0})
+    main = {name: recheck(torch, timer, name, *probe.inputs[name][0],
+                          launches[name], "serve_quantized main path")
+            for name in ("paged_decode_attention_q4",
+                         "packed_prefill_attention")}
+    calls = [recheck(torch, timer, "gemv", *probe.inputs["gemv"][j],
+                     launches["gemv"],
+                     f"serve_quantized main path, layer call {j}")
+             for j in range(MainPathProbe.GEMV_PER_LAYER)]
+    # one layer's seven GEMV calls as one entry: their times and bounds add
+    main["gemv"] = dict(
+        launches=launches["gemv"],
+        kernel_ms=sum(c["kernel_ms"] for c in calls),
+        plain_ms=sum(c["plain_ms"] for c in calls),
+        bound_ms=sum(c["bound_ms"] for c in calls),
+        bound_by=("bytes" if all(c["bound_by"] == "bytes" for c in calls)
+                  else "operations"),
+        library_ms=sum(c["library_ms"] for c in calls),
+        max_abs_err=max(c["max_abs_err"] for c in calls),
+        f32=dict(max_abs_err=max(c["f32"]["max_abs_err"] for c in calls)),
+        per="one layer of a decode step: wq, wk, wv, wo, gate, up, down")
+    require_all_agree("serve_quantized")
+    profile_phase(torch, eng, prompts[1:],
+                  median([r["wall_s"] for r in rounds]), of="serve_quantized")
+    del eng, probe
+    free_device_memory(torch)
+    return main
+
+
+def profile_phase(torch, eng, prompts, round_wall_s, of="serve"):
     """Where a serve round's time goes: one more round of the same four
     prompts and 64 new tokens under ``torch.profiler``, device activity
     only.  Reports the profiled wall time, the device's busy time (sum of
@@ -634,7 +942,8 @@ def profile_phase(torch, eng, prompts, round_wall_s):
             and device_us(e) > 0]
     busy_ms = sum(device_us(e) for e in rows) / 1e3
     top = sorted(rows, key=device_us, reverse=True)[:8]
-    emit("profile", prompts=[len(p) for p in prompts], max_new_tokens=64,
+    emit("profile", of=of, prompts=[len(p) for p in prompts],
+         max_new_tokens=64,
          profiled_wall_ms=wall_ms, unprofiled_round_wall_ms=round_wall_s * 1e3,
          device_busy_ms=busy_ms if rows else "not measured",
          device_idle_share_estimate=(1.0 - busy_ms / (round_wall_s * 1e3)
@@ -673,29 +982,70 @@ def preempt_phase(torch):
     if eng.preemptions < 1:
         raise AssertionError("preempt: the pool forced no preemption")
     del eng, params
-    torch.cuda.empty_cache()
+    free_device_memory(torch)
 
 
-def last_logits(torch, cfg, params, seq):
-    """f32 logits after ``seq`` on the CPU plain path (one packed segment
-    into a fresh pool)."""
-    import numpy as np
-    from repro_torch.models.transformer import forward_chunk_packed
-    from repro_torch.serving.kv_pool import KVPool
-    pool = KVPool(cfg, n_slots=1, n_pages=-(-len(seq) // 8), page_size=8,
-                  device="cpu")
-    assert pool.grow(0, len(seq))
-    T = -(-len(seq) // 8) * 8
-    toks = np.zeros(T, np.int32)
-    toks[:len(seq)] = seq
-    logits, _ = forward_chunk_packed(
-        params, cfg, torch.from_numpy(toks), torch.tensor([0]),
-        torch.tensor([0]), torch.tensor([len(seq)]), torch.tensor([0]),
-        pool.caches, block_tables=pool.block_tables())
-    return logits[0, 0]
+class RecordMargins:
+    """For the length of a ``with`` block, record the top-2 logit margin of
+    every token a port engine appends, per request: the engine's sampler
+    keeps each program's last-position logits, its single device-to-host
+    transfer point hands each token on with its row's margin, and its
+    ``_append_token`` files the margin under the request."""
+
+    def __init__(self, torch, eng):
+        self.torch, self.eng = torch, eng
+        self.margins = {}
+
+    def __enter__(self):
+        import numpy as np
+        from repro_torch.serving import engine as eng_mod
+        torch, eng = self.torch, self.eng
+        rows = []
+        sample = eng_mod.sample_greedy
+        to_host, append = eng._to_host, eng._append_token
+        self._saved = sample
+
+        def sample_kept(logits):
+            rows.append(logits[:, -1].float())
+            return sample(logits)
+
+        def host(arr):
+            toks = to_host(arr)
+            top2 = torch.topk(rows[-1], 2, dim=-1).values.cpu().numpy()
+            rows.clear()
+            out = np.empty(toks.shape, object)
+            for i, t in enumerate(toks.tolist()):
+                out[i] = Tok(t)
+                out[i].margin = float(top2[i, 0] - top2[i, 1])
+            return out
+
+        def appended(req, tok):
+            self.margins.setdefault(req.req_id, []).append(tok.margin)
+            return append(req, tok)
+
+        eng_mod.sample_greedy = sample_kept
+        eng._to_host, eng._append_token = host, appended
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving import engine as eng_mod
+        eng_mod.sample_greedy = self._saved
+        for attr in ("_to_host", "_append_token"):
+            delattr(self.eng, attr)
+        return False
+
+
+class Tok(int):
+    """A sampled token that carries its row's top-2 logit margin."""
+    margin: float
 
 
 def parity_phase(torch):
+    """Reduced llama2-7b and qwen3-8b, f32 KV and int8 KV, with a roomy
+    pool and one that forces preemption: a ``cuda`` engine (kernels) and a
+    ``cpu`` engine (plain versions) on the same weights must log the same
+    ticks, and their greedy streams must be equal up to the first position
+    where the CPU run's own top-2 margin is at most 1e-3."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params
@@ -709,42 +1059,47 @@ def parity_phase(torch):
         rng = np.random.default_rng(5)
         prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
                    for n in (13, 29, 7, 22)]
-        for n_pages in (96, 12):
+        for kv_dtype, n_pages in (("f32", 96), ("f32", 12), ("int8", 96)):
             runs = []
             for dev, params in ((DEV, params_dev), ("cpu", params_cpu)):
                 eng = make_engine(
                     torch, cfg, params, dev, max_batch=4, page_size=8,
-                    n_pages=n_pages,
+                    n_pages=n_pages, kv_dtype=kv_dtype,
                     phase=PhaseAwareConfig(prefill_chunk=8, pack_align=8))
-                reqs = eng.generate(prompts, SamplingParams(max_new_tokens=8))
+                with RecordMargins(torch, eng) as rec:
+                    reqs = eng.generate(prompts,
+                                        SamplingParams(max_new_tokens=8))
                 runs.append((
                     [(t.prefill_reqs, t.decode_reqs, t.preemptions,
                       t.prefill_tokens) for t in eng.tick_log],
-                    [list(r.generated) for r in reqs], eng.preemptions))
-            (log_g, out_g, pre_g), (log_c, out_c, _) = runs
+                    [list(r.generated) for r in reqs], eng.preemptions,
+                    [rec.margins[r.req_id] for r in reqs]))
+            (log_g, out_g, pre_g, _), (log_c, out_c, _, margins) = runs
             if log_g != log_c:
-                raise AssertionError(f"parity {name}: tick logs differ")
-            flips = []
+                raise AssertionError(f"parity {name} {kv_dtype}: tick logs "
+                                     "differ")
+            flips, compared = [], 0
             for i, (a, b) in enumerate(zip(out_g, out_c)):
                 j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
-                         None)
-                if j is None:
+                         len(b))
+                compared += j
+                if j == len(b):
                     continue
-                top2 = torch.topk(last_logits(
-                    torch, cfg, params_cpu,
-                    np.concatenate([prompts[i], np.asarray(b[:j], np.int32)])),
-                    2).values
-                margin = float(top2[0] - top2[1])
-                flips.append(dict(request=i, position=j, margin=margin))
-                if margin > 1e-3:
+                flips.append(dict(request=i, position=j,
+                                  margin=margins[i][j]))
+                if margins[i][j] > 1e-3:
                     raise AssertionError(
-                        f"parity {name}: request {i} differs at token {j} "
-                        f"where the CPU margin is {margin}")
-            emit("parity", model=cfg.name, n_pages=n_pages, ticks=len(log_g),
-                 preemptions=pre_g, streams_equal=out_g == out_c,
+                        f"parity {name} {kv_dtype}: request {i} differs at "
+                        f"token {j} where the CPU margin is {margins[i][j]}")
+            emit("parity", model=cfg.name, kv_dtype=kv_dtype,
+                 n_pages=n_pages, ticks=len(log_g), preemptions=pre_g,
+                 streams_equal=out_g == out_c, positions_compared=compared,
                  near_tie_flips=flips)
             if n_pages == 12 and pre_g < 1:
                 raise AssertionError(f"parity {name}: no preemption forced")
+            if compared < len(prompts):
+                raise AssertionError(f"parity {name} {kv_dtype}: only "
+                                     f"{compared} positions compared")
 
 
 def _to_device(tree, device):
@@ -795,25 +1150,35 @@ def main() -> int:
             traceback.print_exc()
             emit(phase, failed=f"{type(e).__name__}: {e}")
             failed.append(phase)
-            torch.cuda.empty_cache()
+            free_device_memory(torch)
             return None
 
     run("kernel", kernel_phase, torch, timer)
     main_path = run("serve", serve_phase, torch, timer)
+    main_quantized = run("serve_quantized", serve_quantized_phase, torch,
+                         timer)
     run("preempt", preempt_phase, torch)
     run("parity", parity_phase, torch)
     if failed:
         raise AssertionError(f"failed phases: {failed}")
 
+    # each kernel's numbers from the serve phase whose main path it is on
     sources = {"paged_decode_attention": (
                    "src/repro_torch/csrc/paged_decode_attention.cu",
-                   "src/repro/kernels/decode_attention.py:186"),
+                   "src/repro/kernels/decode_attention.py:186", main_path),
                "packed_prefill_attention": (
                    "src/repro_torch/csrc/packed_prefill_attention.cu",
-                   "src/repro/kernels/flash_attention.py:217")}
+                   "src/repro/kernels/flash_attention.py:217", main_path),
+               "gemv": (
+                   "src/repro_torch/csrc/gemv_int8.cu",
+                   "src/repro/kernels/gemv_cid.py:74", main_quantized),
+               "paged_decode_attention_q4": (
+                   "src/repro_torch/csrc/paged_decode_attention_q4.cu",
+                   "src/repro/kernels/decode_attention.py:313",
+                   main_quantized)}
     kernels = []
-    for kname, (source, replaces) in sources.items():
-        r = main_path[kname]
+    for kname, (source, replaces, main) in sources.items():
+        r = main[kname]
         kernels.append(dict(name=kname, route="cuda", source=source,
                             replaces=replaces, launches=r["launches"],
                             max_abs_err=r["f32"]["max_abs_err"],

@@ -28,14 +28,16 @@
 //    cannot reach the output.  p is rounded to the value dtype before P.V,
 //    as the reference does.  The split's running max m, denominator l and
 //    unnormalised accumulator go to f32 scratch.
-// 2. paged_decode_combine — one block per (b, h): rescales the splits that
-//    hold tokens to their common max, sums, divides by l (clamped at
-//    1e-30) and writes the result in q's dtype.
+// 2. paged_decode_combine (paged_decode_combine.cuh) — one block per
+//    (b, h): rescales the splits that hold tokens to their common max,
+//    sums, divides by l (clamped at 1e-30) and writes the result in q's
+//    dtype.
 //
 // CUDA-core FMAs out of shared memory; wgmma/TMA are not needed to reach
 // the byte bound of a one-token query, but a persistent, pipelined walk is
 // the next step for this kernel.
 #include "common.cuh"
+#include "paged_decode_combine.cuh"
 
 namespace {
 
@@ -194,31 +196,6 @@ paged_decode_partial(const T* __restrict__ q, const T* __restrict__ k_pages,
   for (int g = tid; g < G; g += kThreads) {
     part_ml[(at * G + g) * 2] = m_s[g];
     part_ml[(at * G + g) * 2 + 1] = l_s[g];
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_combine(const float* __restrict__ part_acc,
-                     const float* __restrict__ part_ml,
-                     const int* __restrict__ lengths, T* __restrict__ out,
-                     int H, int Hkv, int D, int P, int W, int split, int n_split) {
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int G = H / Hkv;
-  const int len = min(lengths[b], W * P);
-  const int used = min((len + split - 1) / split, n_split);
-  const size_t base = (static_cast<size_t>(b) * Hkv + h) * n_split;
-  for (int i = threadIdx.x; i < G * D; i += kThreads) {
-    const int g = i / D;
-    float m = NEG_INF;
-    for (int z = 0; z < used; ++z) m = fmaxf(m, part_ml[((base + z) * G + g) * 2]);
-    float l = 0.f, a = 0.f;
-    for (int z = 0; z < used; ++z) {
-      const float w = expf(part_ml[((base + z) * G + g) * 2] - m);
-      l += w * part_ml[((base + z) * G + g) * 2 + 1];
-      a += w * part_acc[(base + z) * G * D + i];
-    }
-    out[(static_cast<size_t>(b) * H + h * G) * D + i] = from_f32<T>(a / fmaxf(l, 1e-30f));
   }
 }
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import gemv_cid as _gemv
 from repro_torch.kernels import ref as _ref
 
 
@@ -43,3 +44,21 @@ def packed_prefill_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
           else _fa.packed_prefill_attention)
     return fn(q, k_new, v_new, k_pages, v_pages, block_tables, seg_starts,
               seg_offsets, seg_lengths, ring=ring, window=window)
+
+
+def paged_decode_attention_q4(q, k_pages, k_scales, v_pages, v_scales,
+                              block_tables, lengths):
+    """Paged decode attention over packed-int4 pages: uint8 nibble pairs
+    [n_pages,P,Hkv,D/2] plus f32 scale pages [n_pages,P,Hkv] under the same
+    block table; q, p and the dequantized V in f32."""
+    fn = (_ref.paged_decode_attention_q4_ref if _on_cpu(q)
+          else _da.paged_decode_attention_q4)
+    return fn(q, k_pages, k_scales, v_pages, v_scales, block_tables, lengths)
+
+
+def gemv(x, w, scale=None):
+    """Decode-shaped product x [M,K] @ w [K,N] with f32 accumulation: int8
+    w with a per-column f32 ``scale`` applied to the accumulator, or float
+    w in x's dtype without one.  Result in x's dtype."""
+    fn = _ref.gemv_ref if _on_cpu(x) else _gemv.gemv
+    return fn(x, w, scale)

@@ -9,6 +9,8 @@ import math
 
 import torch
 
+from repro_torch.serving.quantized_cache import dequantize, unpack_int4
+
 NEG_INF = -1e30
 
 
@@ -37,6 +39,47 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths):
     ctx = torch.einsum("bhgs,bshd->bhgd", p.to(v_pages.dtype).float(),
                        gv.float())
     return ctx.reshape(B, H, D).to(q.dtype)
+
+
+def paged_decode_attention_q4_ref(q, k_pages, k_scales, v_pages, v_scales,
+                                  block_tables, lengths):
+    """Plain version of ``paged_decode_attention_q4``: gather the packed
+    pages and their scales through ``block_tables.clamp(max=n_pages-1)``,
+    unpack (low nibble = element 2i, a nibble >= 8 is value - 16) and
+    dequantize in f32, mask positions at or past ``lengths`` and sentinel
+    pages, softmax in f32 with scale 1/sqrt(D), and P.V in f32 (p is not
+    rounded), as the reference's q4 kernel does.  Masked V rows are
+    zeroed."""
+    B, H, D = q.shape
+    n_pages, P, Hkv = k_pages.shape[0], k_pages.shape[1], k_pages.shape[2]
+    W = block_tables.shape[1]
+    G = H // Hkv
+    bt = block_tables.long()
+    pages = bt.clamp(0, n_pages - 1)
+    gk = dequantize(unpack_int4(k_pages[pages]), k_scales[pages]).reshape(
+        B, W * P, Hkv, D)
+    gv = dequantize(unpack_int4(v_pages[pages]), v_scales[pages]).reshape(
+        B, W * P, Hkv, D)
+    idx = torch.arange(W * P, device=q.device)
+    valid = ((idx[None, :] < lengths.long()[:, None])
+             & ~(bt >= n_pages).repeat_interleave(P, dim=1))       # [B, S]
+    qg = q.reshape(B, Hkv, G, D).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, gk) * (1.0 / math.sqrt(D))
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    gv = torch.where(valid[:, :, None, None], gv, torch.zeros_like(gv))
+    ctx = torch.einsum("bhgs,bshd->bhgd", p, gv)
+    return ctx.reshape(B, H, D).to(q.dtype)
+
+
+def gemv_ref(x, w, scale=None):
+    """Plain version of ``gemv``: x [M,K] @ w [K,N] in f32, times the
+    per-column ``scale`` applied to the f32 product (the kernel's epilogue
+    dequant), in x's dtype."""
+    out = x.float() @ w.float()
+    if scale is not None:
+        out = out * scale.float()
+    return out.to(x.dtype)
 
 
 def packed_prefill_attention_ref(q, k_new, v_new, k_pages, v_pages,

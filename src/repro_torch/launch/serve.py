@@ -8,6 +8,13 @@ src/repro/launch/serve.py).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --reduced --device cpu          # the plain PyTorch path, no card
 
+``--weights-dtype int8`` quantizes the matmul weights per output channel
+at engine build (decode-shaped products then run in the int8 GEMV kernel);
+``--kv-dtype int8`` stores KV pages int8 and ``--kv-dtype int4`` packs them
+two nibbles per byte, both with per-token scale pages (int4 decode runs in
+the int4 paged decode kernel).  Every run is paged, so the reference's
+"quantized KV needs --paged" check always holds here.
+
 Weights are random, drawn from ``--seed`` on the device (no checkpoint is
 read).  ``--reduced`` runs the family's tiny f32 config.  The engine runs on
 ``--device`` (``cuda`` by default; there is no silent fallback to the CPU).
@@ -45,6 +52,13 @@ def main(argv=None) -> int:
                     help="tokens per KV page")
     ap.add_argument("--n-pages", type=int, default=64,
                     help="pages per run pool")
+    ap.add_argument("--kv-dtype", default="f32",
+                    choices=["f32", "int8", "int4"],
+                    help="KV page format: f32 = the model dtype; int8: "
+                         "per-token scale pages; int4: packed nibble pairs")
+    ap.add_argument("--weights-dtype", default="f32",
+                    choices=["f32", "int8"],
+                    help="int8: per-output-channel quantized matmul weights")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (the plain versions)")
@@ -54,7 +68,7 @@ def main(argv=None) -> int:
 
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
-    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels import decode_attention, flash_attention, gemv_cid
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import ServeConfig, ServingEngine
     from repro_torch.serving.sampling import SamplingParams
@@ -73,14 +87,16 @@ def main(argv=None) -> int:
                                prefill_chunk=args.prefill_chunk,
                                max_prefill_tokens=args.max_prefill_tokens),
         seed=args.seed, paged=True, page_size=args.page_size,
-        n_pages=args.n_pages)
+        n_pages=args.n_pages, kv_dtype=args.kv_dtype,
+        weights_dtype=args.weights_dtype)
     engine = ServingEngine(cfg, params, sc, device=device)
 
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, (args.prompt_len,),
                             dtype=np.int32) for _ in range(args.requests)]
     kernels = (decode_attention.paged_decode_attention,
-               flash_attention.packed_prefill_attention)
+               flash_attention.packed_prefill_attention, gemv_cid.gemv,
+               decode_attention.paged_decode_attention_q4)
     launches0 = [k.launches for k in kernels]
     t0 = time.monotonic()
     done = engine.generate(prompts,
@@ -104,7 +120,8 @@ def main(argv=None) -> int:
           f"decode={occ['decode']:.2f} mixed={occ['mixed']:.2f}  "
           f"host-transfers={engine.host_transfers}")
     kv = engine.kv_bytes()
-    print(f"kv=paged[{args.n_pages}x{args.page_size}] "
+    print(f"kv=paged[{args.n_pages}x{args.page_size},{args.kv_dtype}] "
+          f"weights={args.weights_dtype} "
           f"reserved={kv['reserved'] / 1e6:.2f}MB "
           f"peak-resident={kv['peak_resident'] / 1e6:.2f}MB "
           f"preemptions={engine.preemptions}")

@@ -1,10 +1,15 @@
 """Attention over the paged KV pool — the serving main path (port of the
-paged, float-pool part of src/repro/models/attention.py).
+paged part of src/repro/models/attention.py).
 
-* ``attn_decode_paged`` — one new token per sequence against the pool,
-  through the paged flash-decode kernel (HALO's CiD phase).
+* ``attn_decode_paged`` — one new token per sequence against a float pool,
+  through the paged flash-decode kernel (HALO's CiD phase);
+  ``attn_decode_q8_paged`` against an int8 pool (both contractions s8 x s8,
+  exact integer sums) and ``attn_decode_q4_paged`` against a packed-int4
+  pool, through the int4 paged flash-decode kernel.
 * ``attn_chunk_packed_paged`` — one tick's prefill chunks as a flat token
-  stream, through the packed-prefill kernel (HALO's CiM phase).
+  stream, through the packed-prefill kernel (HALO's CiM phase); a quantized
+  pool is dequantized to the activation dtype for it, and the chunk's K/V
+  are quantized on the way in.
 
 Both update the pool IN PLACE: the reference scatters functionally with
 ``.at[...].set(..., mode="drop")`` and relies on out-of-range sentinel
@@ -13,7 +18,9 @@ in-place ``index_put_`` (an out-of-range index is an error on the CPU and
 undefined on CUDA).  The pools are zero-initialized and only ever written
 with finite values, and every read path masks unwritten entries.
 
-Quantized pools (int8/int4 KV) arrive with ROADMAP queue A, item 6.
+Quantized pools carry ``k_scale``/``v_scale`` pages ([n_pages, P, Hkv]
+f32) beside ``k``/``v``: int8 [n_pages, P, Hkv, D], or uint8 nibble pairs
+[n_pages, P, Hkv, D/2] for int4 (``serving/quantized_cache.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +32,10 @@ import torch
 
 from repro_torch.kernels import ops as _kops
 from repro_torch.models.layers import apply_rope, head_rmsnorm, matmul
+from repro_torch.serving.quantized_cache import (dequantize, pack_int4,
+                                                 quantize_token,
+                                                 quantize_token_int4,
+                                                 unpack_int4)
 
 NEG_INF = -1e30
 _INT32_MAX = 2 ** 31 - 1
@@ -64,10 +75,40 @@ def _paged_ring(window, n_pages: int, page_size: int) -> int:
     return min(w, capacity) if w > 0 else capacity
 
 
-def _float_pool(cache) -> None:
-    if "k_scale" in cache:
-        raise NotImplementedError("int8/int4 KV: later slice "
-                                  "(ROADMAP queue A, item 6)")
+def _dequantized_pool(cache, dtype):
+    """A quantized pool's K and V pages dequantized to ``dtype``
+    ([n_pages, P, Hkv, D] each).  Dequantizing is elementwise, so reading
+    history from these pages gives exactly the reference's
+    ``dequantize(raw[pages], scale[pages]).astype(dtype)``
+    (src/repro/models/attention.py:683-690)."""
+    raw_k, raw_v = cache["k"], cache["v"]
+    if raw_k.dtype == torch.uint8:                  # packed int4
+        raw_k, raw_v = unpack_int4(raw_k), unpack_int4(raw_v)
+    return (dequantize(raw_k, cache["k_scale"]).to(dtype),
+            dequantize(raw_v, cache["v_scale"]).to(dtype))
+
+
+def _write_pool(cache, write, k, v) -> None:
+    """Write the selected tokens' K/V ([n, Hkv, D]) into the pool at
+    ``write`` = (token rows, pages, offsets), in place; a quantized pool
+    stores them quantized per (token, kv head) with their scales — packed
+    int4 on a uint8 pool, int8 otherwise (reference: the ``.at[].set``
+    scatters of attention.py:719-732, :990-993, :1052-1055)."""
+    rows, w_page, w_off = write
+    k, v = k[rows], v[rows]
+    if "k_scale" not in cache:
+        cache["k"][w_page, w_off] = k
+        cache["v"][w_page, w_off] = v
+        return
+    if cache["k"].dtype == torch.uint8:
+        (kq, ks), (vq, vs) = quantize_token_int4(k), quantize_token_int4(v)
+        kq, vq = pack_int4(kq), pack_int4(vq)
+    else:
+        (kq, ks), (vq, vs) = quantize_token(k), quantize_token(v)
+    cache["k"][w_page, w_off] = kq
+    cache["k_scale"][w_page, w_off] = ks
+    cache["v"][w_page, w_off] = vq
+    cache["v_scale"][w_page, w_off] = vs
 
 
 # ---------------------------------------------------------------------------
@@ -215,27 +256,32 @@ def attn_chunk_packed_paged(params, x, seg: PackedSegs, cache, block_table,
     """Packed-stream chunked prefill writing K/V into the paged pool.
 
     x: [1, T, d] — one flat stream of N segments described by ``seg``;
-    ``cache`` {"k","v"} of [n_pages, P, Hkv, D] addressed via
-    ``block_table`` [B, W].  Each token attends over its own segment's
-    history plus the causally visible tokens of its segment in the stream;
-    the history is read BEFORE the stream's K/V are written (a ring entry
-    the chunk overwrites is still needed by the chunk's early queries).
-    The attention runs in the packed-prefill kernel (plain version on the
-    CPU); a softcapped model takes a plain gather path.  ``write`` is the
-    precomputed ``packed_write_index`` (computed here when omitted).
+    ``cache`` {"k","v"} of [n_pages, P, Hkv, D] (or a quantized pool, see
+    the module docstring) addressed via ``block_table`` [B, W].  Each token
+    attends over its own segment's history plus the causally visible
+    tokens of its segment in the stream; the history is read BEFORE the
+    stream's K/V are written (a ring entry the chunk overwrites is still
+    needed by the chunk's early queries).  The attention runs in the
+    packed-prefill kernel (plain version on the CPU) — over the pool
+    dequantized to x's dtype when it is quantized, which is the
+    reference's dense attention over dequantized history; a softcapped
+    model takes a plain gather path.  ``write`` is the precomputed
+    ``packed_write_index`` (computed here when omitted).
 
     Returns (out [1, T, d_model], cache) — the pool updated in place.
     """
-    _float_pool(cache)
     _, T, _ = x.shape
-    k_pages, v_pages = cache["k"], cache["v"]
-    n_pages, P = k_pages.shape[0], k_pages.shape[1]
+    n_pages, P = cache["k"].shape[0], cache["k"].shape[1]
     B = block_table.shape[0]
     R = _paged_ring(window, n_pages, P)
     q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, d_head,
                            seg.positions[None], theta, qk_norm)
     q, k, v = q[0], k[0], v[0]                                   # [T, ...]
     bt_rows = block_table[seg.slots.clamp(0, B - 1)]             # [N, W]
+    if "k_scale" in cache:
+        k_pages, v_pages = _dequantized_pool(cache, x.dtype)
+    else:
+        k_pages, v_pages = cache["k"], cache["v"]
     if softcap and softcap > 0.0:
         # no kernel path for softcap (not on the paper's models)
         prev_k, prev_v, prev_pos = _gather_history(k_pages, v_pages, bt_rows,
@@ -253,9 +299,7 @@ def attn_chunk_packed_paged(params, x, seg: PackedSegs, cache, block_table,
 
     if write is None:
         write = packed_write_index(seg, bt_rows, R, P, n_pages, B)
-    toks, w_page, w_off = write
-    k_pages[w_page, w_off] = k[toks]        # in place (reference: .at[].set)
-    v_pages[w_page, w_off] = v[toks]
+    _write_pool(cache, write, k, v)
     return out, cache
 
 
@@ -279,6 +323,41 @@ def paged_write_index(block_table, pos, ring: int, page_size: int,
     return rows, w_page[rows], (ridx % page_size)[rows]
 
 
+def _decode_head(params, x, cache, block_table, pos, *, n_heads, n_kv_heads,
+                 d_head, theta, window, qk_norm, write):
+    """What every paged decode path does first: project the new token of
+    each row at ``pos`` [B], write its K/V into the pool (quantized when
+    the pool is), and return (q [B, 1, H, D], lengths [B]) with lengths =
+    min(pos + 1, R): the ring holds exactly that many leading logical
+    entries."""
+    B = x.shape[0]
+    n_pages, P = cache["k"].shape[0], cache["k"].shape[1]
+    R = _paged_ring(window, n_pages, P)
+    pos = torch.as_tensor(pos, device=x.device).long().expand(B)
+    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, d_head,
+                           pos[:, None], theta, qk_norm)
+    if write is None:
+        write = paged_write_index(block_table, pos, R, P, n_pages)
+    _write_pool(cache, write, k[:, 0], v[:, 0])
+    return q, torch.clamp(pos + 1, max=R)
+
+
+def _valid_entries(block_table, lengths, n_pages: int, page_size: int):
+    """[B, W*P] mask of the gathered view: before ``lengths`` and on an
+    allocated page."""
+    bt = block_table.long()
+    S = bt.shape[1] * page_size
+    return ((torch.arange(S, device=bt.device)[None, :] < lengths[:, None])
+            & ~(bt >= n_pages).repeat_interleave(page_size, dim=1))
+
+
+def _gathered(pages, block_table, n_pages: int):
+    """Pool pages [n_pages, P, ...] gathered per row through the block
+    table (sentinels clamp; callers mask them): [B, W*P, ...]."""
+    g = pages[block_table.long().clamp(0, n_pages - 1)]
+    return g.reshape(g.shape[0], g.shape[1] * g.shape[2], *g.shape[3:])
+
+
 def attn_decode_paged(params, x, cache, block_table, pos, *, n_heads,
                       n_kv_heads, d_head, theta, window, softcap=0.0,
                       qk_norm=False, write=None):
@@ -291,35 +370,23 @@ def attn_decode_paged(params, x, cache, block_table, pos, *, n_heads,
     position of the NEW token.  The new entry is written first, then
     attended.  Returns (out, cache) — the pool updated in place.
     """
-    _float_pool(cache)
     B = x.shape[0]
     k_pages, v_pages = cache["k"], cache["v"]
     n_pages, P = k_pages.shape[0], k_pages.shape[1]
-    R = _paged_ring(window, n_pages, P)
-    pos = torch.as_tensor(pos, device=x.device).long().expand(B)
-    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, d_head,
-                           pos[:, None], theta, qk_norm)
-    if write is None:
-        write = paged_write_index(block_table, pos, R, P, n_pages)
-    rows, w_page, w_off = write
-    k_pages[w_page, w_off] = k[rows, 0]     # in place (reference: .at[].set)
-    v_pages[w_page, w_off] = v[rows, 0]
-    # ring validity: exactly min(pos + 1, R) leading logical entries
-    lengths = torch.clamp(pos + 1, max=R)
+    q, lengths = _decode_head(params, x, cache, block_table, pos,
+                              n_heads=n_heads, n_kv_heads=n_kv_heads,
+                              d_head=d_head, theta=theta, window=window,
+                              qk_norm=qk_norm, write=write)
     if softcap and softcap > 0.0:
         # no kernel path for softcap (not on the paper's models): a dense
         # gathered view and the reference math
-        bt = block_table.long()
-        pages = bt.clamp(0, n_pages - 1)
-        gk = k_pages[pages].reshape(B, -1, n_kv_heads, d_head)
-        gv = v_pages[pages].reshape(B, -1, n_kv_heads, d_head)
+        gk = _gathered(k_pages, block_table, n_pages)
+        gv = _gathered(v_pages, block_table, n_pages)
         Hkv, G = n_kv_heads, n_heads // n_kv_heads
         qg = q.reshape(B, Hkv, G, d_head).float()
         s = torch.einsum("bhgd,bshd->bhgs", qg, gk.float()) / math.sqrt(d_head)
         s = _maybe_softcap(s, softcap)
-        S = gk.shape[1]
-        ok = ((torch.arange(S, device=x.device)[None, :] < lengths[:, None])
-              & ~(bt >= n_pages).repeat_interleave(P, dim=1))
+        ok = _valid_entries(block_table, lengths, n_pages, P)
         s = torch.where(ok[:, None, None, :], s, NEG_INF)
         p = torch.softmax(s, dim=-1)
         ctx = torch.einsum("bhgs,bshd->bhgd", p.to(gv.dtype).float(),
@@ -332,3 +399,114 @@ def attn_decode_paged(params, x, cache, block_table, pos, *, n_heads,
     ctx = ctx.reshape(B, 1, n_heads * d_head).to(x.dtype)
     out = matmul(ctx, params["wo"])
     return out, cache
+
+
+def _q8_sweep(q, ck, cks, cv, cvs, valid, *, n_heads, n_kv_heads, d_head,
+              softcap):
+    """The s8 x s8 decode attention sweep of the int8 paths (the
+    reference's ``_q8_sweep``, src/repro/models/attention.py:743).
+
+    q: [B, 1, H, Dh] float; ck/cv: int8 [B, S, Hkv, Dh] (a block-table
+    gather of the pool); cks/cvs: f32 [B, S, Hkv] scales; valid: [B, S].
+    Returns ctx f32 [B, Hkv, G, Dh].
+
+      scores[s] = (q_q . k_q[s]) * q_scale * k_scale[s]
+      out       = (p'_q . v_q)   * p'_scale          with p' = p * v_scale[s]
+
+    The reference contracts s8 x s8 in int32.  Both sums are sums of
+    integers here, held exactly: q.k in f32, whose partial sums stay below
+    127^2 * Dh < 2^24 (every integer below 2^24 is an f32); p.v in float64,
+    since over S tokens they reach 127^2 * S, past 2^24 beyond ~1000 tokens,
+    and float64 holds every integer below 2^53 (PyTorch has no int32
+    matrix product on CUDA)."""
+    B = q.shape[0]
+    Hkv = n_kv_heads
+    G = n_heads // Hkv
+    q_q, q_s = quantize_token(q.reshape(B, Hkv, G, d_head))
+    s_int = torch.einsum("bhgd,bshd->bhgs", q_q.float(), ck.float())
+    scores = (s_int * q_s[..., None]
+              * cks.permute(0, 2, 1)[:, :, None, :])
+    scores = scores / math.sqrt(d_head)
+    scores = _maybe_softcap(scores, softcap)
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)                      # [B,Hkv,G,S]
+    # fold v_scale into p, re-quantize, s8 x s8 P.V
+    p_scaled = probs * cvs.permute(0, 2, 1)[:, :, None, :]
+    p_q, p_s = quantize_token(p_scaled)                        # scale [B,Hkv,G]
+    ctx_int = torch.einsum("bhgs,bshd->bhgd", p_q.double(), cv.double())
+    return ctx_int.float() * p_s[..., None]
+
+
+def attn_decode_q8_paged(params, x, cache, block_table, pos, *, n_heads,
+                         n_kv_heads, d_head, theta, window, softcap=0.0,
+                         qk_norm=False, write=None):
+    """int8 paged decode (the reference's ``attn_decode_q8_paged``,
+    src/repro/models/attention.py:965): the HALO-faithful memory format on
+    the block pool.
+
+    cache: {"k": int8 [n_pages,P,Hkv,Dh], "k_scale": f32 [n_pages,P,Hkv],
+    "v", "v_scale"} — scales ride in a parallel page array under the same
+    block table.  The new token is quantized and written, the row's pages
+    are gathered, and both contractions run s8 x s8 (``_q8_sweep``).  The
+    reference has no kernel here either.  Returns (out, cache) — the pool
+    updated in place."""
+    B = x.shape[0]
+    n_pages, P = cache["k"].shape[0], cache["k"].shape[1]
+    q, lengths = _decode_head(params, x, cache, block_table, pos,
+                              n_heads=n_heads, n_kv_heads=n_kv_heads,
+                              d_head=d_head, theta=theta, window=window,
+                              qk_norm=qk_norm, write=write)
+    gk = _gathered(cache["k"], block_table, n_pages)               # int8
+    gks = _gathered(cache["k_scale"], block_table, n_pages)
+    gv = _gathered(cache["v"], block_table, n_pages)
+    gvs = _gathered(cache["v_scale"], block_table, n_pages)
+    valid = _valid_entries(block_table, lengths, n_pages, P)
+    ctx = _q8_sweep(q, gk, gks, gv, gvs, valid, n_heads=n_heads,
+                    n_kv_heads=n_kv_heads, d_head=d_head, softcap=softcap)
+    ctx = ctx.reshape(B, 1, n_heads * d_head).to(x.dtype)
+    return matmul(ctx, params["wo"]), cache
+
+
+def attn_decode_q4_paged(params, x, cache, block_table, pos, *, n_heads,
+                         n_kv_heads, d_head, theta, window, softcap=0.0,
+                         qk_norm=False, write=None):
+    """Packed-int4 paged decode (the reference's ``attn_decode_q4_paged``,
+    src/repro/models/attention.py:1015): quarter-width KV bytes.
+
+    cache: {"k": uint8 [n_pages,P,Hkv,Dh//2] (nibble pairs), "k_scale": f32
+    [n_pages,P,Hkv], "v", "v_scale"}.  The new token is quantized to int4
+    per kv head, packed and written; the sweep runs in the int4 paged
+    flash-decode kernel (plain version on the CPU), which unpacks and
+    dequantizes in registers.  A softcapped model takes the reference's
+    plain gathered view.  Returns (out, cache) — the pool updated in
+    place."""
+    B = x.shape[0]
+    n_pages, P = cache["k"].shape[0], cache["k"].shape[1]
+    q, lengths = _decode_head(params, x, cache, block_table, pos,
+                              n_heads=n_heads, n_kv_heads=n_kv_heads,
+                              d_head=d_head, theta=theta, window=window,
+                              qk_norm=qk_norm, write=write)
+    if softcap and softcap > 0.0:
+        gk = dequantize(unpack_int4(_gathered(cache["k"], block_table,
+                                              n_pages)),
+                        _gathered(cache["k_scale"], block_table, n_pages))
+        gv = dequantize(unpack_int4(_gathered(cache["v"], block_table,
+                                              n_pages)),
+                        _gathered(cache["v_scale"], block_table, n_pages))
+        Hkv, G = n_kv_heads, n_heads // n_kv_heads
+        qg = q.reshape(B, Hkv, G, d_head).float()
+        s = torch.einsum("bhgd,bshd->bhgs", qg,
+                         gk.to(q.dtype).float()) / math.sqrt(d_head)
+        s = _maybe_softcap(s, softcap)
+        ok = _valid_entries(block_table, lengths, n_pages, P)
+        s = torch.where(ok[:, None, None, :], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        ctx = torch.einsum("bhgs,bshd->bhgd", p, gv)
+    else:
+        ctx = _kops.paged_decode_attention_q4(
+            q.reshape(B, n_heads, d_head), cache["k"], cache["k_scale"],
+            cache["v"], cache["v_scale"],
+            block_table.to(torch.int32).contiguous(),
+            lengths.to(torch.int32))
+    ctx = ctx.reshape(B, 1, n_heads * d_head).to(x.dtype)
+    return matmul(ctx, params["wo"]), cache

@@ -5,9 +5,11 @@ and the port's parameters share one layout: ``embed`` [V, d], ``lm_head``
 [d, V] (absent when embeddings are tied), ``final_norm`` {"scale"}, and per
 run ``runs[r]`` with every leaf stacked [n_layers, ...] — ``ln1``/``ln2``
 {"scale"}, ``attn`` {"wq","wk","wv","wo"[, "q_norm","k_norm"]} and ``ffn``
-{"wi_gate","wi_up","wo"}.  The converter takes that pytree as numpy arrays
-(the caller converts the JAX arrays), checks it, and copies each leaf onto
-the device.  No checkpoint is ever downloaded.
+{"wi_gate","wi_up","wo"}.  A weight the reference quantized
+(``quantize_params``) is a ``{"q": int8, "scale": f32}`` leaf and keeps
+those dtypes.  The converter takes that pytree as numpy arrays (the caller
+converts the JAX arrays), checks it, and copies each leaf onto the device.
+No checkpoint is ever downloaded.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 
 
 def _tree(x, device, dtype):
+    if isinstance(x, dict) and set(x) == {"q", "scale"}:
+        # an int8-quantized weight leaf keeps its int8 values and f32 scales
+        return {k: _leaf(v, device, None) for k, v in x.items()}
     if isinstance(x, dict):
         return {k: _tree(v, device, dtype) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
@@ -41,7 +46,8 @@ def _tree(x, device, dtype):
 def params_from_jax(np_pytree: Any, device,
                     dtype: Optional[torch.dtype] = None) -> dict:
     """The reference's parameter pytree (numpy leaves) as the port's
-    parameters on ``device`` (cast to ``dtype`` when given)."""
+    parameters on ``device`` (float leaves cast to ``dtype`` when given;
+    the int8 values and f32 scales of quantized leaves are kept)."""
     missing = {"embed", "final_norm", "runs"} - set(np_pytree)
     if missing:
         raise ValueError(f"params_from_jax: missing {sorted(missing)}")

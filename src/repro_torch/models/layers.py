@@ -13,6 +13,8 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops as _kops
+
 Params = Dict[str, Any]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -122,17 +124,52 @@ def ffn(params, x, act: str = "silu"):
 # matmul with f32 accumulation
 # ---------------------------------------------------------------------------
 
+# Decode-shaped quantized matmuls (token dim <= this) take the int8 GEMV
+# kernel (kernels/gemv_cid.py), so the weight bytes cross device memory at
+# int8 width with the dequant in the kernel's epilogue — HALO's CiD decode
+# mapping.  The threshold catches decode (T = 1) and verify windows, not
+# prefill chunks, which dequantize and take the library GEMM (CiM).
+GEMV_TOKEN_DIM_MAX = 8
+
+# route counter: one per call that takes the GEMV route (the reference
+# counts traces of its jitted programs; this eager port counts calls).
+# Tests assert decode under int8 weights goes through the kernel.
+_gemv_routes = 0
+
+
+def gemv_route_count() -> int:
+    return _gemv_routes
+
+
+def reset_gemv_route_count() -> None:
+    global _gemv_routes
+    _gemv_routes = 0
+
+
 def matmul(x, w):
-    """x @ w with f32 accumulation, result in x.dtype (dense weights only;
-    the int8 ``{"q","scale"}`` leaves arrive with ROADMAP queue A, item 6).
+    """x @ w with f32 accumulation, result in x.dtype.
+
+    ``w`` may be an int8 weight-only-quantized leaf {"q","scale"}
+    (serving/quantized_weights.py).  Calls whose token dim is at most
+    ``GEMV_TOKEN_DIM_MAX`` take the int8 GEMV kernel on the int8 bytes;
+    larger ones dequantize to x's dtype and take ``torch.matmul`` (the
+    reference leaves that product to XLA's einsum, not to a kernel).
 
     f32 runs in full f32 (TF32 is off, see ``repro_torch/__init__``).  bf16
     products accumulate in f32 inside the GEMM with reduced-precision
     reductions off, and round once on output — the reference's
     ``preferred_element_type=f32`` then ``astype``."""
+    global _gemv_routes
     if isinstance(w, dict):
-        raise NotImplementedError("quantized weight leaves: later slice "
-                                  "(ROADMAP queue A, item 6)")
+        q, scale = w["q"], w["scale"]
+        if (q.ndim == 2 and x.ndim >= 2
+                and x.shape[-2] <= GEMV_TOKEN_DIM_MAX):
+            _gemv_routes += 1
+            lead = x.shape[:-1]
+            out = _kops.gemv(x.reshape(-1, x.shape[-1]).contiguous(), q,
+                             scale.float())
+            return out.reshape(*lead, q.shape[-1]).to(x.dtype)
+        w = (q.float() * scale.float()[..., None, :]).to(x.dtype)
     return torch.matmul(x, w.to(x.dtype))
 
 

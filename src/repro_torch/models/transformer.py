@@ -185,10 +185,18 @@ def _ffn_residual(cfg, lp, x):
 
 def _attn_layer_decode_paged(cfg, run, lp, x, cache, bt, pos, write=None):
     """One attention layer of a paged one-token decode step; ``cache`` is
-    the layer's pool view, updated in place."""
+    the layer's pool view, updated in place.  A quantized pool (``k_scale``
+    pages) decodes through the int4 path when its pages are uint8 nibble
+    pairs and the int8 path otherwise."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    a, cache = attn_mod.attn_decode_paged(lp["attn"], h, cache, bt, pos,
-                                          write=write, **_attn_kw(cfg, run))
+    if "k_scale" in cache:
+        decode = (attn_mod.attn_decode_q4_paged
+                  if cache["k"].dtype == torch.uint8
+                  else attn_mod.attn_decode_q8_paged)
+    else:
+        decode = attn_mod.attn_decode_paged
+    a, cache = decode(lp["attn"], h, cache, bt, pos, write=write,
+                      **_attn_kw(cfg, run))
     return _ffn_residual(cfg, lp, x + a), cache
 
 

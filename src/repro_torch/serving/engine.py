@@ -52,6 +52,7 @@ from repro_torch.models.transformer import (
 )
 from repro_torch.serving.executor import make_executor
 from repro_torch.serving.kv_pool import KVPool
+from repro_torch.serving.quantized_weights import quantize_params
 from repro_torch.serving.metrics import (MetricsRegistry, counter_attr,
                                          gauge_attr)
 from repro_torch.serving.sampling import (SamplingParams, require_greedy,
@@ -86,9 +87,8 @@ def _unported(sc: ServeConfig) -> Optional[str]:
         (sc.prefix_cache, "prefix_cache=True: item 7"),
         (sc.speculative is not None, "speculative decoding: item 7"),
         (sc.host_spill_pages > 0, "host_spill_pages > 0 (host tier): item 9"),
-        (sc.kv_dtype != "f32", f"kv_dtype={sc.kv_dtype!r}: item 6"),
-        (sc.weights_dtype != "f32",
-         f"weights_dtype={sc.weights_dtype!r}: item 6"),
+        (not sc.default_sampling().greedy,
+         "a stochastic default sampling (greedy=False): item 8"),
         (sc.executor == "disaggregated", "executor='disaggregated': item 9"),
         (sc.admission is not None, "admission control: item 10"),
     ]
@@ -132,8 +132,16 @@ class ServingEngine:
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"engine runs on {self.device}")
+        if sc.weights_dtype not in ("f32", "int8"):
+            raise ValueError(f"weights_dtype={sc.weights_dtype!r} "
+                             "(expected 'f32' or 'int8')")
         self.metrics = MetricsRegistry()
         self.cfg = cfg
+        if sc.weights_dtype == "int8":
+            # serving quantizes EVERY matmul leaf (min_size=0): HALO's CiD
+            # computes int8 end to end, and decode-shaped products read the
+            # int8 bytes in the GEMV kernel (models/layers.matmul)
+            params = quantize_params(params, min_size=0)
         self.params = params
         self.sc = sc
         if sc.legacy_sampling_overridden():

@@ -15,12 +15,13 @@ Two layers:
   reference: free list, per-slot block tables, per-page refcounts, grow /
   shrink / release, attach / retain / copy-on-write, and the invariants
   the tests check.
-* ``KVPool`` — one ``PagePool`` + one float page tensor pair per attention
-  run, ZERO-initialized on the device (an uninitialized page could hold
-  NaNs; the kernels mask unwritten entries, and zeros keep even a masked
-  read finite).  The model updates the pages in place.  Quantized pages
-  (``kv_dtype`` int8/int4) and the host spill tier arrive with ROADMAP
-  queue A, items 6 and 9.
+* ``KVPool`` — one ``PagePool`` + one page tensor pair per attention run,
+  ZERO-initialized on the device (an uninitialized page could hold NaNs;
+  the kernels mask unwritten entries, and zeros keep even a masked read
+  finite).  The model updates the pages in place.  ``kv_dtype`` "int8"
+  stores int8 pages, "int4" packed nibble pairs at half the head width,
+  both beside one f32 scale page per (position, kv head).  The host spill
+  tier arrives with ROADMAP queue A, item 9.
 """
 
 from __future__ import annotations
@@ -243,9 +244,14 @@ class KVPool:
     """Device page tensors + per-run ``PagePool`` accounting for a model.
 
     ``caches`` is a list aligned with ``build_plan(cfg)``: per run a dict
-    ``{"k", "v"}`` of zero-initialized ``[L, n_pages, P, Hkv, Dh]`` tensors
-    on ``device``.  The block tables stay host-side (numpy) and are shipped
-    per call as int32 tensors.
+    of zero-initialized tensors on ``device`` — ``{"k", "v"}`` of ``[L,
+    n_pages, P, Hkv, Dh]`` in the model dtype for ``kv_dtype="f32"``; int8
+    ``k``/``v`` of that shape plus f32 ``k_scale``/``v_scale`` of ``[L,
+    n_pages, P, Hkv]`` for "int8"; uint8 ``k``/``v`` of ``[L, n_pages, P,
+    Hkv, Dh // 2]`` (two nibbles per byte; uint8 against int8 is also how
+    the model tells int4 from int8) plus the same scale pages for "int4".
+    The block tables stay host-side (numpy) and are shipped per call as
+    int32 tensors.
     """
 
     def __init__(self, cfg: ModelConfig, n_slots: int, n_pages: int,
@@ -255,13 +261,12 @@ class KVPool:
             raise ValueError(
                 "paged KV arena requires an all-attention plan; got kinds "
                 f"{[r.kind for r in plan]}")
-        if kv_dtype != "f32":
-            if kv_dtype in ("int8", "int4"):
-                raise NotImplementedError(
-                    f"kv_dtype={kv_dtype!r}: later slice (ROADMAP queue A, "
-                    "item 6)")
+        if kv_dtype not in ("f32", "int8", "int4"):
             raise ValueError(f"kv_dtype must be 'f32', 'int8' or 'int4', "
                              f"got {kv_dtype!r}")
+        if kv_dtype == "int4" and cfg.d_head % 2:
+            raise ValueError(f"kv_dtype='int4' packs head-dim pairs; "
+                             f"d_head={cfg.d_head} is odd")
         self.cfg = cfg
         self.device = torch.device(device)
         self.n_slots = n_slots
@@ -278,15 +283,21 @@ class KVPool:
         self.plan = plan
         self.pools: List[PagePool] = []
         self.caches: List[Dict[str, torch.Tensor]] = []
-        dtype = torch_dtype(cfg.dtype)
+        dtype, width = {"f32": (torch_dtype(cfg.dtype), cfg.d_head),
+                        "int8": (torch.int8, cfg.d_head),
+                        "int4": (torch.uint8, cfg.d_head // 2)}[kv_dtype]
         for run in plan:
             R = cache_len(run, self.capacity)
             self.pools.append(PagePool(n_pages, page_size, n_slots, R))
-            shape = (run.n_layers, n_pages, page_size, cfg.n_kv_heads,
-                     cfg.d_head)
-            self.caches.append({
-                "k": torch.zeros(shape, dtype=dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=dtype, device=self.device)})
+            shape = (run.n_layers, n_pages, page_size, cfg.n_kv_heads)
+            cache = {name: torch.zeros((*shape, width), dtype=dtype,
+                                       device=self.device)
+                     for name in ("k", "v")}
+            if kv_dtype != "f32":
+                for name in ("k_scale", "v_scale"):
+                    cache[name] = torch.zeros(shape, dtype=torch.float32,
+                                              device=self.device)
+            self.caches.append(cache)
         self._page_bytes = [
             sum(leaf.numel() * leaf.element_size() // n_pages
                 for leaf in c.values())
@@ -386,7 +397,7 @@ class KVPool:
     # -- accounting ---------------------------------------------------------------
     def page_bytes(self, r: int) -> int:
         """Bytes of device memory one physical page of run ``r`` holds
-        (across all layers, K and V)."""
+        (across all layers, K and V, scale pages included)."""
         return self._page_bytes[r]
 
     def resident_bytes(self) -> int:

@@ -43,3 +43,10 @@ def test_guard_sees_what_it_must_refuse(tmp_path):
     names = [n for _, n in _imports(src) if _forbidden(n)]
     assert names == ["jax.numpy", "repro.configs", "repro.kernels"]
     assert len(FILES) > 20
+
+
+def test_guard_covers_the_quantized_path():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in ("serving/quantized_weights.py", "serving/quantized_cache.py",
+                "kernels/gemv_cid.py"):
+        assert f"src/repro_torch/{mod}" in names

@@ -1,6 +1,6 @@
 """The port's model primitives against the JAX package's on the CPU:
 rmsnorm, head_rmsnorm, rope, the SiLU-gated FFN, the f32-accumulating
-matmul and the qkv projection (qk-norm on and off).  Inputs are drawn with
+matmul (dense and int8-quantized weights) and the qkv projection (qk-norm on and off).  Inputs are drawn with
 numpy; everything is f32; atol 1e-5."""
 
 import jax
@@ -72,8 +72,11 @@ def test_matmul():
     xj, xt = _both(rng.standard_normal((3, 7, 48)).astype(np.float32))
     wj, wt = _both(rng.standard_normal((48, 24)).astype(np.float32))
     _close(tl.matmul(xt, wt), jl.matmul(xj, wj))
-    with pytest.raises(NotImplementedError):
-        tl.matmul(xt, {"q": wt, "scale": wt[0]})
+    # an int8 {"q","scale"} leaf: the dequantized product at this token dim
+    qj = {"q": jnp.clip(jnp.round(wj * 40), -127, 127).astype(jnp.int8),
+          "scale": jnp.asarray(rng.uniform(0.01, 0.05, 24), jnp.float32)}
+    qt = {k: torch.from_numpy(np.array(v)) for k, v in qj.items()}
+    _close(tl.matmul(xt, qt), jl.matmul(xj, qj))
 
 
 @pytest.mark.parametrize("qk_norm", [False, True])

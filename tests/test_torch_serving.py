@@ -123,9 +123,18 @@ def test_kv_pool_layout():
     assert bt.dtype == torch.int32 and tuple(bt.shape) == (2, 10)
     assert (bt[0, :3] < 10).all() and (bt[0, 3:] == 10).all()
     assert (bt[1] == 10).all()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        kv_pool.KVPool(cfg, n_slots=3, n_pages=10, page_size=4,
-                       kv_dtype="int8", device="cpu")
+    # quantized pools: int8 pages, or uint8 nibble pairs at half the head
+    # width, each beside zero f32 scale pages [L, n_pages, P, Hkv]
+    for kv_dtype, dtype, width in (("int8", torch.int8, cfg.d_head),
+                                   ("int4", torch.uint8, cfg.d_head // 2)):
+        (q,) = kv_pool.KVPool(cfg, n_slots=3, n_pages=10, page_size=4,
+                              kv_dtype=kv_dtype, device="cpu").caches
+        assert set(q) == {"k", "v", "k_scale", "v_scale"}
+        for name in ("k", "v"):
+            assert q[name].dtype == dtype and not q[name].any()
+            assert tuple(q[name].shape) == shape[:-1] + (width,)
+            assert q[f"{name}_scale"].dtype == torch.float32
+            assert tuple(q[f"{name}_scale"].shape) == shape[:-1]
 
 
 def test_greedy_sampling_takes_the_first_maximum():
@@ -159,8 +168,9 @@ def _tiny():
     dict(paged=False), dict(paged=True, packed_prefill=False),
     dict(paged=True, prefix_cache=True),
     dict(paged=True, speculative=SpecConfig(k=2)),
-    dict(paged=True, host_spill_pages=4), dict(paged=True, kv_dtype="int8"),
-    dict(paged=True, weights_dtype="int8"),
+    dict(paged=True, host_spill_pages=4),
+    dict(paged=True, admission=scheduler.AdmissionConfig()),
+    dict(paged=True, greedy=False, temperature=0.7),
     dict(paged=True, executor="disaggregated")])
 def test_unported_options_raise(option):
     cfg, params = _tiny()

@@ -114,3 +114,72 @@ def test_serve_cli_on_cpu(capsys):
     assert "requests=3 tokens=15" in out
     assert "paged_decode_attention=0 packed_prefill_attention=0" in out
     assert np.isfinite(float(out.split("TTFT p50=")[1].split("ms")[0]))
+
+
+def test_gemv_bound_counts_weight_bytes(monkeypatch):
+    """Bytes: the int8 weight once, its f32 scales, x in and out back; the
+    operations at x's type are far below that."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    M, K, N = 4, 1100, 300
+    x, w, scale = chip_smoke.gemv_inputs(torch, M, K, N, torch.bfloat16, 0)
+    assert w.dtype == torch.int8 and scale.dtype == torch.float32
+    nbytes = K * N + 4 * N + (M * K + M * N) * 2
+    ms, by = chip_smoke.gemv_cost(x, w, scale)
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
+def test_q4_bound_counts_packed_bytes(monkeypatch):
+    """B1's live tokens at D/2 packed bytes plus a 4-byte scale per token
+    and kv head a side; masked rows carry NaN scales the plain version
+    never lets through."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    H, Hkv, D, B, ctx = 8, 2, 16, 2, 100
+    args = chip_smoke.q4_inputs(torch, H, Hkv, D, B, ctx, torch.float32, 0)
+    q, kp, ks, vp, vs, bt, lengths = args
+    assert kp.dtype == torch.uint8 and kp.shape[-1] == D // 2
+    assert torch.isnan(ks).any()
+    P = chip_smoke.PAGE
+    tokens = 100 + (63 - P)
+    entries = math.ceil(100 / P) + math.ceil(63 / P)
+    nbytes = (2 * B * H * D * 4 + 2 * tokens * Hkv * (D // 2 + 4)
+              + 4 * (entries + B))
+    ms, by = chip_smoke.q4_cost(*args)
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    from repro_torch.kernels import ref
+    assert torch.isfinite(ref.paged_decode_attention_q4_ref(*args)).all()
+
+
+@pytest.mark.parametrize("name", ["gemv", "paged_decode_attention_q4"])
+def test_quantized_bf16_tolerance_fails_a_dropped_tile(monkeypatch, name):
+    """The bf16 bound of the int8 GEMV and the int4 decode passes the same
+    function summed in float64 and rounded to bf16 once, and fails a result
+    that dropped 256 rows of K (GEMV, K = 4096) or two pages — 32 keys — of
+    every sequence's 1963-token walk (int4 decode)."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    from repro_torch.kernels import ref
+    if name == "gemv":
+        args = chip_smoke.gemv_inputs(torch, 4, 4096, 512, torch.bfloat16, 3)
+        x, w, scale = args
+        want = ref.gemv_ref(*args)
+        f64 = ((x.double() @ w.double()) * scale.double()).to(torch.bfloat16)
+        dropped = x.clone()
+        dropped[:, 256:512] = 0
+        got = ref.gemv_ref(dropped, w, scale)
+    else:
+        args = chip_smoke.q4_inputs(torch, 32, 8, 128, 4, 1963,
+                                    torch.bfloat16, 3)
+        q, kp, ks, vp, vs, bt, lengths = args
+        want = ref.paged_decode_attention_q4_ref(*args)
+        kf, vf = chip_smoke.q4_dequantized(torch, *args[:5])
+        f64 = ref.paged_decode_attention_ref(
+            q.double(), kf.double(), vf.double(), bt, lengths
+        ).to(torch.bfloat16)
+        cut = bt.clone()
+        cut[:, 40:42] = kp.shape[0]           # sentinel: never read
+        got = ref.paged_decode_attention_q4_ref(q, kp, ks, vp, vs, cut,
+                                                lengths)
+    tol, A = chip_smoke.tolerance(torch, name, args, {}, "bfloat16")
+    assert chip_smoke.close(torch, f64, want, "bfloat16", A, tol)[1]
+    assert not chip_smoke.close(torch, got, want, "bfloat16", A, tol)[1]
