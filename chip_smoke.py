@@ -17,8 +17,14 @@ Phases, one JSON line each:
    (float and packed-int4 pages, with a sentinel page and NaN on every
    masked row) at batch 1 and 4, packed prefill on a pack_align=8 stream
    of four segments with history, and the int8 GEMV at every (K, N) of the
-   two models' layers for M = 1, 4 and 32 rows.  Tolerances: f32 |err| <=
-   1e-4; bf16 (see ``tolerance``) for paged decode and packed prefill, per
+   two models' layers for M = 1, 4 and 32 rows; whole-prompt flash
+   attention (B5) at T = 2560 and 4000 (a ragged last tile), window 0 and
+   1024, batch 1 and (T = 2560) 2; dense decode (B6) over a 4160-position
+   arena at batch 1 and 4 with lengths 1, ragged and 4160 and NaN on every
+   row at or past a length; and packed prefill over the dense arena's view
+   (one 8192-token page per slot, block table = slot, unwritten rows NaN).
+   Tolerances: f32 |err| <= 1e-4; bf16 (see ``tolerance``) for the float
+   attention kernels (B1, B2, B5, B6), per
    element, |err| <= 2^-7 A + 2^-6 |ref|, where A is the plain version's
    f32 result with every V row replaced by its absolute value (sum_i p_i
    |v_i|).  Both sides round the softmax weights p to bf16 before P.V,
@@ -33,11 +39,13 @@ Phases, one JSON line each:
    events, median of 20 launches, L2 flushed between launches; ``bound_ms``
    is the larger of the bytes the call must move over 3.35 TB/s and its
    operations over the peak rate of its type (989 TFLOP/s bf16, 67 TFLOP/s
-   f32); ``library_ms`` times one library call on the same inputs — for
-   attention ``scaled_dot_product_attention`` on the pre-gathered dense K/V
-   (dequantized beforehand for int4) with a boolean mask, for the GEMV
-   ``torch.matmul`` on the weight dequantized beforehand — a yardstick
-   only, never used by the port.
+   f32): B5 by its 4 B H D (visible query-key pairs) operations, B6 by the
+   K/V bytes of its valid rows; ``library_ms`` times one library call on
+   the same inputs — for attention ``scaled_dot_product_attention`` on the
+   pre-gathered dense K/V (dequantized beforehand for int4; repeated to the
+   H query heads beforehand) with a boolean mask (``is_causal`` for B5
+   without a window), for the GEMV ``torch.matmul`` on the weight
+   dequantized beforehand — a yardstick only, never used by the port.
 4. ``serve``   — ``ServingEngine`` on qwen3-8b at full width and all 36
    layers in bf16 (random weights from a seeded ``torch.Generator`` on the
    card): paged pool (page 16, 1024 pages), max_batch 4, default
@@ -61,17 +69,38 @@ Phases, one JSON line each:
    n_layers times per prefill step, the float decode kernel never; each
    kernel is re-checked at the main path's inputs as in ``serve``, and a
    ``profile`` line (``"of": "serve_quantized"``) follows as for ``serve``.
-6. ``preempt`` — the same model cut to 4 layers, with a pool small enough
+6. ``serve_dense`` — qwen3-8b as in ``serve`` on the DENSE arena
+   (``paged=False``, max_len 8192, max_batch 4) with whole-prompt prefill
+   (``prefill_chunk=0``): prompts of 8000, 4096, 2304 and 1000 tokens, 64
+   new tokens each, two rounds.  Each round, the flash-attention kernel
+   must launch 36 x 3 times (every prompt above 2048 tokens, every layer;
+   the 1000-token one takes the plain dense path), the dense decode kernel
+   36 x the decode steps, the paged, int8 and int4 kernels and the packed
+   prefill never.  Then one more round on a second dense engine with the
+   default packed chunks (prefill_chunk 2048): packed prefill 36 x the
+   prefill steps over the arena viewed as one 8192-token page per slot,
+   flash attention never.  B5 (the 8000-token prompt's first layer), B6
+   (the first layer of the first decode step with all four requests
+   decoding) and B2 (the first packed launch) are re-checked at those
+   inputs as in ``serve``.  TTFT per prompt length, TPOT, decode tokens/s,
+   peak memory and a ``profile`` line (``"of": "serve_dense"``).
+7. ``preempt`` — the same model cut to 4 layers, with a pool small enough
    to force preemptions; every request must finish.
-7. ``parity``  — reduced llama2-7b and qwen3-8b in f32, one engine on
+8. ``parity``  — reduced llama2-7b and qwen3-8b in f32, one engine on
    ``cuda`` (kernels) and one on ``cpu`` (plain versions), same weights,
-   f32 KV (with and without a forced preemption) and int8 KV: equal tick
-   logs, and equal greedy streams up to the first position where the CPU
-   run's own top-2 logit margin, recorded as it served, is at most 1e-3.
+   f32 KV (with and without a forced preemption) and int8 KV on the paged
+   pool, and the dense arena with whole-prompt prefill (a 2100-token
+   prompt among short ones) and with packed chunks: equal tick logs, and
+   equal greedy streams up to the first position where the CPU run's own
+   top-2 logit margin, recorded as it served, is at most 1e-3.
+
+In every serve phase each kernel's plain version must be called 0 times:
+on the card nothing falls back to it.
 
 Then one ``{"kernels": [...]}`` line (launches from the serve phase whose
 main path runs the kernel — ``serve_quantized`` for the GEMV and the int4
-decode, whose times sum one layer's seven GEMV calls — times at its inputs
+decode, whose times sum one layer's seven GEMV calls, ``serve_dense`` for
+B5 and B6 — times at its inputs
 in bf16, ``max_abs_err`` from the f32 check at those inputs and
 ``max_abs_err_bf16`` from the bf16 one), the ``nvidia-smi`` line, and
 as the last line
@@ -105,6 +134,8 @@ PAGE = 16
 ITERS = 20
 ROUNDS = 3                # serve rounds of the same four requests
 ROUNDS_QUANTIZED = 2      # serve_quantized rounds of them
+ROUNDS_DENSE = 2          # serve_dense whole-prompt rounds
+DENSE_MAX_LEN = 8192      # serve_dense arena positions per slot
 DEV = "cuda"              # the card; the input builders allocate here
 FAILED = []               # kernel checks that disagreed (raised per phase)
 
@@ -183,10 +214,15 @@ def close(torch, got, ref, dt: str, abs_ctx=None, tol=None):
     return float(err.max()), bool((err <= bound).all()), worst
 
 
+# the arguments that hold V, per float attention kernel
+V_ARGS = {"paged_decode_attention": (2,), "packed_prefill_attention": (2, 4),
+          "flash_attention": (2,), "decode_attention": (2,)}
+
+
 def abs_context(plain, name, args, kw):
     """A = sum_i p_i |v_i|: the plain version in f32 with |V|."""
     f32 = [x.float() if x.is_floating_point() else x for x in args]
-    for i in ((2,) if name == "paged_decode_attention" else (2, 4)):
+    for i in V_ARGS[name]:
         f32[i] = f32[i].abs()
     return plain(*f32, **kw)
 
@@ -473,19 +509,18 @@ def q4_library(torch, q, kp, ks, vp, vs, bt, lengths):
 
 
 def tolerance(torch, name, args, kw, dt):
-    """(tolerance, A) of one check.  f32: |err| <= 1e-4.  bf16, B1 and B2:
-    ``TOL["bfloat16"]`` (see the module docstring).  bf16, B3 and B4: both
-    sides compute in f32 from the same values (bf16 x or q widen exactly;
-    int8 and int4 codes times their scales are the same f32 products), and
-    each f32 sum of n terms is off by at most n 2^-24 times the sum of
-    their magnitudes A, so the two differ by at most 2n 2^-24 A, plus a
-    term of exp and division per p in B4 that (n + 1) covers; each side
-    then rounds once to bf16, at most half an ulp, 2^-8 |ref| — so |err|
-    <= 2^-7 |ref| + (2n + 2) 2^-24 A, with n = K for B3 (A = |x| @ |w|
-    times the scale) and n = the longest length for B4 (A = sum_i p_i
-    |v_i|).  B4 keeps p in f32, so no p-rounding term enters."""
-    if dt == "float32" or name in ("paged_decode_attention",
-                                   "packed_prefill_attention"):
+    """(tolerance, A) of one check. f32: |err| <= 1e-4. bf16, B1, B2, B5 and B6:
+    ``TOL["bfloat16"]`` (see the module docstring). bf16, B3 and B4: both sides
+    compute in f32 from the same values (bf16 x or q widen exactly; int8 and
+    int4 codes times their scales are the same f32 products), and each f32 sum
+    of n terms is off by at most n 2^-24 times the sum of their magnitudes A,
+    so the two differ by at most 2n 2^-24 A, plus a term of exp and division
+    per p in B4 that (n + 1) covers; each side then rounds once to bf16, at
+    most half an ulp, 2^-8 |ref| — so |err| <= 2^-7 |ref| + (2n + 2) 2^-24 A,
+    with n = K for B3 (A = |x| @ |w| times the scale) and n = the longest
+    length for B4 (A = sum_i p_i |v_i|). B4 keeps p in f32, so no p-rounding
+    term enters."""
+    if dt == "float32" or name in V_ARGS:
         if not TOL[dt]["p_abs"]:
             return TOL[dt], None
         plain = ref_of(name)
@@ -505,6 +540,133 @@ def tolerance(torch, name, args, kw, dt):
 
 
 # ---------------------------------------------------------------------------
+# whole-prompt flash attention (B5)
+# ---------------------------------------------------------------------------
+
+def flash_inputs(torch, H, Hkv, D, B, T, window, dtype, seed):
+    """q [B,H,T,D], k/v [B,Hkv,T,D] of a T-token prompt, causal."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q = torch.randn((B, H, T, D), device=DEV, generator=g)
+    k = torch.randn((B, Hkv, T, D), device=DEV, generator=g)
+    v = torch.randn((B, Hkv, T, D), device=DEV, generator=g)
+    return (q.to(dtype), k.to(dtype), v.to(dtype)), dict(causal=True,
+                                                         window=window)
+
+
+def visible_pairs(T, causal, window):
+    """Query-key pairs a T-token prompt's mask lets through (per head)."""
+    if not causal:
+        return sum(min(T - i + window - 1, T) if window > 0 else T
+                   for i in range(T))
+    if window <= 0:
+        return T * (T + 1) // 2
+    return sum(min(i + 1, window) for i in range(T))
+
+
+def flash_cost(args, kw):
+    q, k, _ = args
+    B, H, T, D = q.shape
+    el = q.element_size()
+    nbytes = (2 * q.numel() + 2 * k.numel()) * el
+    flops = 4.0 * B * H * D * visible_pairs(T, kw["causal"], kw["window"])
+    return bound(nbytes, flops, dtype_name(q))
+
+
+def flash_library(torch, args, kw):
+    """``scaled_dot_product_attention`` with K/V repeated to the H query
+    heads beforehand: ``is_causal`` without a window, a boolean band mask
+    with one."""
+    import torch.nn.functional as F
+    q, k, v = args
+    G = q.shape[1] // k.shape[1]
+    k = k.repeat_interleave(G, dim=1).contiguous()
+    v = v.repeat_interleave(G, dim=1).contiguous()
+    if kw["window"] <= 0:
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=kw["causal"])
+    t = torch.arange(q.shape[2], device=q.device)
+    mask = (t[None] <= t[:, None]) & (t[:, None] - t[None] < kw["window"])
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+# ---------------------------------------------------------------------------
+# dense-arena decode attention (B6) and packed prefill over the arena (B2)
+# ---------------------------------------------------------------------------
+
+def dense_decode_inputs(torch, H, Hkv, D, B, S, dtype, seed):
+    """One query token per row against a dense arena [B,S,Hkv,D]: lengths
+    S - 37 at batch 1; 1, 2049, S and 777 at batch 4.  Every row at or past
+    a length holds NaN."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    lengths = [S - 37] if B == 1 else [1, 2049, S, 777][:B]
+    k = torch.randn((B, S, Hkv, D), device=DEV, generator=g)
+    v = torch.randn((B, S, Hkv, D), device=DEV, generator=g)
+    for b, n in enumerate(lengths):
+        k[b, n:] = float("nan")
+        v[b, n:] = float("nan")
+    q = torch.randn((B, H, D), device=DEV, generator=g)
+    return (q.to(dtype), k.to(dtype), v.to(dtype),
+            torch.tensor(lengths, dtype=torch.int32, device=DEV))
+
+
+def dense_decode_cost(q, k, v, lengths):
+    B, H, D = q.shape
+    Hkv = k.shape[2]
+    el = q.element_size()
+    tokens = sum(min(n, k.shape[1]) for n in lengths.cpu().tolist())
+    nbytes = 2 * q.numel() * el + 2 * tokens * Hkv * D * el + 4 * B
+    return bound(nbytes, 4.0 * tokens * H * D, dtype_name(q))
+
+
+def dense_decode_library(torch, q, k, v, lengths):
+    """``scaled_dot_product_attention`` over the arena with K/V repeated to
+    the H query heads and masked rows zeroed beforehand, and a boolean
+    length mask."""
+    import torch.nn.functional as F
+    B, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    ok = torch.arange(S, device=q.device)[None] < lengths[:, None].long()
+    k = torch.where(ok[:, :, None, None], k, torch.zeros_like(k))
+    v = torch.where(ok[:, :, None, None], v, torch.zeros_like(v))
+    k = k.permute(0, 2, 1, 3).repeat_interleave(H // Hkv, dim=1).contiguous()
+    v = v.permute(0, 2, 1, 3).repeat_interleave(H // Hkv, dim=1).contiguous()
+    qq, mask = q[:, :, None, :], ok[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(qq, k, v, attn_mask=mask)
+
+
+def arena_prefill_inputs(torch, H, Hkv, D, dtype, seed, R=DENSE_MAX_LEN):
+    """Packed prefill over a dense arena [4, R, Hkv, D] viewed as 4 pages
+    of R tokens (block table = slot): segments of 203, 77 and 130 tokens
+    with histories of 6144, 2048 and 0 tokens in slots 1, 3 and 0, and a
+    pad segment (slot sentinel 4, start == T).  Arena rows at or past a
+    segment's offset — and all of the unused slot 2 — hold NaN."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    lens, offs, slots = [203, 77, 130, 0], [6144, 2048, 0, 0], [1, 3, 0, 4]
+    starts, cur = [], 0
+    for n in lens[:-1]:
+        starts.append(cur)
+        cur = -(-(cur + n) // 8) * 8
+    T = cur + 16
+    starts.append(T)
+    k = torch.randn((4, R, Hkv, D), device=DEV, generator=g)
+    v = torch.randn((4, R, Hkv, D), device=DEV, generator=g)
+    k[2] = float("nan")
+    v[2] = float("nan")
+    for o, s in zip(offs[:-1], slots[:-1]):
+        k[s, o:] = float("nan")
+        v[s, o:] = float("nan")
+    q = torch.randn((T, H, D), device=DEV, generator=g)
+    kn = torch.randn((T, Hkv, D), device=DEV, generator=g)
+    vn = torch.randn((T, Hkv, D), device=DEV, generator=g)
+    i32 = dict(dtype=torch.int32, device=DEV)
+    return ((q.to(dtype), kn.to(dtype), vn.to(dtype), k.to(dtype),
+             v.to(dtype), torch.tensor(slots, **i32)[:, None],
+             torch.tensor(starts, **i32), torch.tensor(offs, **i32),
+             torch.tensor(lens, **i32)),
+            dict(ring=R, window=0))
+
+
+# ---------------------------------------------------------------------------
 # one kernel check: kernel vs plain version, times, bound
 # ---------------------------------------------------------------------------
 
@@ -514,6 +676,8 @@ def ref_of(name):
             "packed_prefill_attention": ref.packed_prefill_attention_ref,
             "gemv": ref.gemv_ref,
             "paged_decode_attention_q4": ref.paged_decode_attention_q4_ref,
+            "flash_attention": ref.flash_attention_ref,
+            "decode_attention": ref.decode_attention_ref,
             }[name]
 
 
@@ -524,6 +688,10 @@ def cost_and_library(torch, name, args, kw):
         return prefill_cost(args, kw), prefill_library(torch, args, kw)
     if name == "gemv":
         return gemv_cost(*args), gemv_library(torch, *args)
+    if name == "flash_attention":
+        return flash_cost(args, kw), flash_library(torch, args, kw)
+    if name == "decode_attention":
+        return dense_decode_cost(*args), dense_decode_library(torch, *args)
     return q4_cost(*args), q4_library(torch, *args)
 
 
@@ -594,6 +762,23 @@ def kernel_phase(torch, timer):
             args = gemv_inputs(torch, 4, K, N, dtype, seed, quantized=False)
             check_kernel(torch, timer, "gemv", args, {},
                          f"{model} M=4 K={K} N={N}, float weights")
+            for B, T, window in ((1, 2560, 0), (1, 2560, 1024), (1, 4000, 0),
+                                 (1, 4000, 1024), (2, 2560, 0)):
+                seed += 1
+                args, kw = flash_inputs(torch, H, Hkv, D, B, T, window, dtype,
+                                        seed)
+                check_kernel(torch, timer, "flash_attention", args, kw,
+                             f"{model} B={B} T={T} window={window}")
+            for B in (1, 4):
+                seed += 1
+                args = dense_decode_inputs(torch, H, Hkv, D, B, 4160, dtype,
+                                           seed)
+                check_kernel(torch, timer, "decode_attention", args, {},
+                             f"{model} B={B} S=4160")
+            seed += 1
+            args, kw = arena_prefill_inputs(torch, H, Hkv, D, dtype, seed)
+            check_kernel(torch, timer, "packed_prefill_attention", args, kw,
+                         f"{model} dense arena view, P=R={DENSE_MAX_LEN}")
     require_all_agree("kernel")
 
 
@@ -609,71 +794,107 @@ def require_all_agree(phase: str) -> None:
 # ---------------------------------------------------------------------------
 
 class MainPathProbe:
-    """Wraps the model entry points the engine calls and the kernel
-    wrappers for the length of a ``with`` block: checks every logit
-    tensor for NaN (one device flag, read once), counts prefill and decode
-    steps, and keeps the inputs the main path gave each kernel for the
-    checks after the run — the first packed-prefill launch, and of the
-    last decode step the first layer's decode attention launch and its
-    ``GEMV_PER_LAYER`` GEMV calls (wq, wk, wv, wo, gate, up, down).  The
-    kernels' own ``launches`` counters are untouched by it."""
+    """Wraps the model entry points the engine calls, the kernel wrappers
+    and their plain versions for the length of a ``with`` block: checks
+    every logit tensor for NaN (one device flag, read once), counts
+    prefill and decode steps and every call of a plain version, and keeps
+    the inputs the main path gave each kernel for the checks after the
+    run — the first packed-prefill and flash-attention launches, of the
+    last decode step the first layer's paged decode attention launch and
+    its ``GEMV_PER_LAYER`` GEMV calls (wq, wk, wv, wo, gate, up, down), and
+    of the first decode step with the most requests decoding the first
+    layer's dense decode launch.  The kernels' own ``launches`` counters
+    are untouched by it."""
 
     GEMV_PER_LAYER = 7
 
-    def __init__(self, torch, n_layers: int):
-        self.torch, self.n_layers = torch, n_layers
+    def __init__(self, torch, n_layers: int, engine):
+        self.torch, self.n_layers, self.engine = torch, n_layers, engine
         self.nan = torch.zeros((), dtype=torch.bool, device=DEV)
         self.steps = {"prefill": 0, "decode": 0}
         self.calls = {name: 0 for name in kernel_functions()}
+        self.plain_calls = {}  # plain version -> calls
         self.inputs = {}       # name -> {call within the layer: (args, kw)}
+        self._rows = 0         # most requests decoding in one step so far
+        self._busiest = False  # this decode step has more than any before
 
     def __enter__(self):
         from repro_torch.kernels import ops
         from repro_torch.serving import engine as eng
+        from repro_torch.serving.types import RequestState
         self._saved = [(eng, "forward", eng.forward),
                        (eng, "forward_chunk_packed", eng.forward_chunk_packed),
+                       (eng, "prefill_into_arena", eng.prefill_into_arena),
                        (ops, "_da", ops._da), (ops, "_fa", ops._fa),
-                       (ops, "_gemv", ops._gemv)]
+                       (ops, "_gemv", ops._gemv), (ops, "_ref", ops._ref)]
 
         def model(fn, step):
             def wrapped(*a, **k):
+                if step == "decode":
+                    rows = sum(r is not None
+                               and r.state == RequestState.DECODING
+                               for r in self.engine.slot_req)
+                    self._busiest = rows > self._rows
+                    self._rows = max(rows, self._rows)
                 out = fn(*a, **k)
                 self.nan |= self.torch.isnan(out[0]).any()
                 self.steps[step] += 1
                 return out
             return wrapped
 
-        def kernel(fn, name, clone, per_layer=1):
+        def kernel(fn, name, keep, per_layer=1):
+            # keep: "first" launch (copied), "last" (references), or the
+            # "busiest" decode step's (copied)
             def wrapped(*a, **k):
                 i = self.calls[name]
                 self.calls[name] += 1
                 j = i % (self.n_layers * per_layer)
                 kept = self.inputs.setdefault(name, {})
-                if j < per_layer and (j not in kept or not clone):
+                if j < per_layer and {"first": j not in kept, "last": True,
+                                      "busiest": self._busiest}[keep]:
+                    clone = keep != "last"
                     kept[j] = (tuple(x.clone() if clone else x for x in a),
                                dict(k))
                 return fn(*a, **k)
             return wrapped
 
+        def plain(fn):
+            def wrapped(*a, **k):
+                self.plain_calls[fn.__name__] = (
+                    self.plain_calls.get(fn.__name__, 0) + 1)
+                return fn(*a, **k)
+            return wrapped
+
         eng.forward = model(eng.forward, "decode")
         eng.forward_chunk_packed = model(eng.forward_chunk_packed, "prefill")
-        # the dispatcher reaches the kernel wrappers through its module
-        # handles; stand-ins there leave the wrappers (and their counts)
-        # untouched.  Decode: the last step's pool is final (written before
-        # it is read and never after) and a GEMV's inputs are never written
-        # again, so references suffice; prefill pools change after the
-        # first launch, so its inputs are copied once.
+        eng.prefill_into_arena = model(eng.prefill_into_arena, "prefill")
+        # the dispatcher reaches the kernel wrappers and the plain versions
+        # through its module handles; stand-ins there leave the wrappers
+        # (and their counts) untouched.  Paged decode: the last step's pool
+        # is final (written before it is read and never after) and a GEMV's
+        # inputs are never written again, so references suffice; prefill
+        # pools change after the first launch, and a dense arena row may be
+        # rewritten by a later request in its slot, so those inputs are
+        # copied once.
         ops._da = types.SimpleNamespace(
             paged_decode_attention=kernel(ops._da.paged_decode_attention,
-                                          "paged_decode_attention", False),
+                                          "paged_decode_attention", "last"),
             paged_decode_attention_q4=kernel(
                 ops._da.paged_decode_attention_q4,
-                "paged_decode_attention_q4", False))
-        ops._fa = types.SimpleNamespace(packed_prefill_attention=kernel(
-            ops._fa.packed_prefill_attention, "packed_prefill_attention",
-            True))
+                "paged_decode_attention_q4", "last"),
+            decode_attention=kernel(ops._da.decode_attention,
+                                    "decode_attention", "busiest"))
+        ops._fa = types.SimpleNamespace(
+            packed_prefill_attention=kernel(
+                ops._fa.packed_prefill_attention, "packed_prefill_attention",
+                "first"),
+            flash_attention=kernel(ops._fa.flash_attention,
+                                   "flash_attention", "first"))
         ops._gemv = types.SimpleNamespace(gemv=kernel(
-            ops._gemv.gemv, "gemv", False, self.GEMV_PER_LAYER))
+            ops._gemv.gemv, "gemv", "last", self.GEMV_PER_LAYER))
+        ops._ref = types.SimpleNamespace(**{
+            name: plain(getattr(ops._ref, name)) for name in dir(ops._ref)
+            if name.endswith("_ref")})
         return self
 
     def __exit__(self, *exc):
@@ -689,14 +910,17 @@ def kernel_functions():
     return {"paged_decode_attention": da.paged_decode_attention,
             "packed_prefill_attention": fa.packed_prefill_attention,
             "gemv": gc.gemv,
-            "paged_decode_attention_q4": da.paged_decode_attention_q4}
+            "paged_decode_attention_q4": da.paged_decode_attention_q4,
+            "flash_attention": fa.flash_attention,
+            "decode_attention": da.decode_attention}
 
 
 def make_engine(torch, cfg, params, device, **sc_kw):
     from repro_torch.serving.engine import ServeConfig, ServingEngine
     from repro_torch.serving.scheduler import PhaseAwareConfig
     phase = sc_kw.pop("phase", PhaseAwareConfig())
-    sc = ServeConfig(paged=True, phase=phase, **sc_kw)
+    sc_kw.setdefault("paged", True)
+    sc = ServeConfig(phase=phase, **sc_kw)
     return ServingEngine(cfg, params, sc, device=device)
 
 
@@ -736,7 +960,7 @@ def serve_rounds(torch, eng, prompts, n_rounds, n_layers):
     for fn in fns.values():
         fn.launches = 0
     rounds, unfinished = [], False
-    with MainPathProbe(torch, n_layers) as probe:
+    with MainPathProbe(torch, n_layers, eng) as probe:
         for _ in range(n_rounds):
             t1, n1 = time.monotonic(), eng.n_ticks
             reqs = eng.generate(prompts, SamplingParams(max_new_tokens=64))
@@ -754,6 +978,9 @@ def serve_rounds(torch, eng, prompts, n_rounds, n_layers):
         raise AssertionError("a logit was NaN")
     if probe.steps["decode"] != len([t for t in log if t.decode_reqs]):
         raise AssertionError("decode steps != ticks that decoded")
+    if probe.plain_calls:
+        raise AssertionError(f"plain versions called on the card: "
+                             f"{probe.plain_calls}")
     return rounds, probe, launches, log
 
 
@@ -769,7 +996,10 @@ def require_launches(phase, launches, expect):
 # the kernels each serve phase's main path runs
 ON_PATH = {"serve": ("paged_decode_attention", "packed_prefill_attention"),
            "serve_quantized": ("gemv", "paged_decode_attention_q4",
-                               "packed_prefill_attention")}
+                               "packed_prefill_attention"),
+           "serve_dense": ("flash_attention", "decode_attention"),
+           "serve_dense_packed": ("packed_prefill_attention",
+                                  "decode_attention")}
 
 
 def free_device_memory(torch):
@@ -788,10 +1018,23 @@ def serve_prompts(cfg):
             for n in (24, 1900, 1000, 333, 37)]
 
 
+def dense_prompts(cfg):
+    """A 24-token warm-up prompt, then the four served prompts of the dense
+    phase: three above the 2048-token threshold of whole-prompt attention
+    and one below it."""
+    import numpy as np
+    rng = np.random.default_rng(2)
+    return [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+            for n in (24, 8000, 4096, 2304, 1000)]
+
+
 def serve_row(torch, cfg, prompts, rounds, probe, launches, log, **extra):
     return dict(model=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype,
                 prompts=[len(p) for p in prompts[1:]], max_new_tokens=64,
                 rounds=rounds, steps=len(log),
+                ttft_ms_by_prompt={len(p): median([r["ttft_ms"][i]
+                                                   for r in rounds])
+                                   for i, p in enumerate(prompts[1:])},
                 prefill_steps=probe.steps["prefill"],
                 decode_steps=probe.steps["decode"],
                 ttft_ms_median=median([r["ttft_ms_median"] for r in rounds]),
@@ -906,6 +1149,60 @@ def serve_quantized_phase(torch, timer):
     profile_phase(torch, eng, prompts[1:],
                   median([r["wall_s"] for r in rounds]), of="serve_quantized")
     del eng, probe
+    free_device_memory(torch)
+    return main
+
+
+def serve_dense_phase(torch, timer):
+    """qwen3-8b on the dense arena: whole-prompt prefill (B5 above 2048
+    tokens), dense decode (B6); then the default packed chunks on a second
+    dense engine (B2 over the arena's one-page-per-slot view, B6)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.scheduler import PhaseAwareConfig
+
+    cfg = dataclasses.replace(get_config("qwen3-8b"), dtype="bfloat16")
+    L = cfg.n_layers
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    torch.cuda.synchronize()
+    t_init = time.monotonic() - t0
+    prompts = dense_prompts(cfg)
+    n_long = sum(len(p) > 2048 for p in prompts[1:])
+    main = {}
+    for chunk, n_rounds, phase in ((0, ROUNDS_DENSE, "serve_dense"),
+                                   (2048, 1, "serve_dense_packed")):
+        eng = make_engine(torch, cfg, params, DEV, paged=False, max_batch=4,
+                          max_len=DENSE_MAX_LEN,
+                          phase=PhaseAwareConfig(prefill_chunk=chunk))
+        t0 = time.monotonic()
+        rounds, probe, launches, log = serve_rounds(torch, eng, prompts,
+                                                    n_rounds, L)
+        emit("serve_dense", **serve_row(
+            torch, cfg, prompts, rounds, probe, launches, log,
+            arena=f"dense [4 x {DENSE_MAX_LEN}]", prefill_chunk=chunk,
+            kv_reserved_gb=eng.kv_bytes()["reserved"] / 1e9, init_s=t_init,
+            wall_s=time.monotonic() - t0))
+        expect = {name: 0 for name in kernel_functions()}
+        expect["decode_attention"] = L * probe.steps["decode"]
+        if chunk == 0:
+            expect["flash_attention"] = L * n_long * n_rounds
+        else:
+            expect["packed_prefill_attention"] = L * probe.steps["prefill"]
+        require_launches(phase, launches, expect)
+        for name in ON_PATH[phase]:
+            if name not in main:
+                main[name] = recheck(torch, timer, name,
+                                     *probe.inputs[name][0], launches[name],
+                                     f"{phase} main path")
+        require_all_agree(phase)
+        if chunk == 0:
+            profile_phase(torch, eng, prompts[1:],
+                          median([r["wall_s"] for r in rounds]),
+                          of="serve_dense")
+        del eng, probe
+        free_device_memory(torch)
+    del params
     free_device_memory(torch)
     return main
 
@@ -1041,11 +1338,14 @@ class Tok(int):
 
 
 def parity_phase(torch):
-    """Reduced llama2-7b and qwen3-8b, f32 KV and int8 KV, with a roomy
-    pool and one that forces preemption: a ``cuda`` engine (kernels) and a
-    ``cpu`` engine (plain versions) on the same weights must log the same
-    ticks, and their greedy streams must be equal up to the first position
-    where the CPU run's own top-2 margin is at most 1e-3."""
+    """Reduced llama2-7b and qwen3-8b: on the paged pool with f32 KV (a
+    roomy pool and one that forces preemption) and int8 KV, and on the
+    dense arena with whole-prompt prefill (a 2100-token prompt, above the
+    flash-attention threshold, among short ones) and with packed chunks —
+    a ``cuda`` engine (kernels) and a ``cpu`` engine (plain versions) on
+    the same weights must log the same ticks, and their greedy streams
+    must be equal up to the first position where the CPU run's own top-2
+    margin is at most 1e-3."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params
@@ -1057,15 +1357,20 @@ def parity_phase(torch):
         params_cpu = init_params(cfg, torch.Generator().manual_seed(7), "cpu")
         params_dev = _to_device(params_cpu, DEV)
         rng = np.random.default_rng(5)
-        prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
-                   for n in (13, 29, 7, 22)]
-        for kv_dtype, n_pages in (("f32", 96), ("f32", 12), ("int8", 96)):
+        short = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+                 for n in (13, 29, 7, 22)]
+        long = [rng.integers(0, cfg.vocab_size, 2100, dtype=np.int32)]
+        cases = [(dict(kv_dtype=kv, n_pages=n, page_size=8,
+                       phase=PhaseAwareConfig(prefill_chunk=8, pack_align=8)),
+                  short) for kv, n in (("f32", 96), ("f32", 12),
+                                       ("int8", 96))]
+        cases += [(dict(paged=False, max_len=2176,
+                        phase=PhaseAwareConfig(prefill_chunk=c, pack_align=8)),
+                   long + short[1:]) for c in (0, 64)]
+        for kw, prompts in cases:
             runs = []
             for dev, params in ((DEV, params_dev), ("cpu", params_cpu)):
-                eng = make_engine(
-                    torch, cfg, params, dev, max_batch=4, page_size=8,
-                    n_pages=n_pages, kv_dtype=kv_dtype,
-                    phase=PhaseAwareConfig(prefill_chunk=8, pack_align=8))
+                eng = make_engine(torch, cfg, params, dev, max_batch=4, **kw)
                 with RecordMargins(torch, eng) as rec:
                     reqs = eng.generate(prompts,
                                         SamplingParams(max_new_tokens=8))
@@ -1074,32 +1379,37 @@ def parity_phase(torch):
                       t.prefill_tokens) for t in eng.tick_log],
                     [list(r.generated) for r in reqs], eng.preemptions,
                     [rec.margins[r.req_id] for r in reqs]))
-            (log_g, out_g, pre_g, _), (log_c, out_c, _, margins) = runs
-            if log_g != log_c:
-                raise AssertionError(f"parity {name} {kv_dtype}: tick logs "
-                                     "differ")
-            flips, compared = [], 0
-            for i, (a, b) in enumerate(zip(out_g, out_c)):
-                j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
-                         len(b))
-                compared += j
-                if j == len(b):
-                    continue
-                flips.append(dict(request=i, position=j,
-                                  margin=margins[i][j]))
-                if margins[i][j] > 1e-3:
-                    raise AssertionError(
-                        f"parity {name} {kv_dtype}: request {i} differs at "
-                        f"token {j} where the CPU margin is {margins[i][j]}")
-            emit("parity", model=cfg.name, kv_dtype=kv_dtype,
-                 n_pages=n_pages, ticks=len(log_g), preemptions=pre_g,
-                 streams_equal=out_g == out_c, positions_compared=compared,
-                 near_tie_flips=flips)
-            if n_pages == 12 and pre_g < 1:
-                raise AssertionError(f"parity {name}: no preemption forced")
-            if compared < len(prompts):
-                raise AssertionError(f"parity {name} {kv_dtype}: only "
-                                     f"{compared} positions compared")
+            label = (f"{name} {kw.get('kv_dtype', 'f32')} "
+                     f"{'paged' if kw.get('paged', True) else 'dense'} "
+                     f"chunk={kw['phase'].prefill_chunk}")
+            compare_parity(label, runs, kw, len(prompts))
+
+
+def compare_parity(label, runs, kw, n_prompts):
+    """Equal tick logs, and streams equal up to the CPU run's first
+    near-tie (margin <= 1e-3); emits the ``parity`` line."""
+    (log_g, out_g, pre_g, _), (log_c, out_c, _, margins) = runs
+    if log_g != log_c:
+        raise AssertionError(f"parity {label}: tick logs differ")
+    flips, compared = [], 0
+    for i, (a, b) in enumerate(zip(out_g, out_c)):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), len(b))
+        compared += j
+        if j == len(b):
+            continue
+        flips.append(dict(request=i, position=j, margin=margins[i][j]))
+        if margins[i][j] > 1e-3:
+            raise AssertionError(
+                f"parity {label}: request {i} differs at token {j} where the "
+                f"CPU margin is {margins[i][j]}")
+    emit("parity", case=label, n_pages=kw.get("n_pages"), ticks=len(log_g),
+         preemptions=pre_g, streams_equal=out_g == out_c,
+         positions_compared=compared, near_tie_flips=flips)
+    if kw.get("n_pages") == 12 and pre_g < 1:
+        raise AssertionError(f"parity {label}: no preemption forced")
+    if compared < n_prompts:
+        raise AssertionError(f"parity {label}: only {compared} positions "
+                             "compared")
 
 
 def _to_device(tree, device):
@@ -1157,6 +1467,7 @@ def main() -> int:
     main_path = run("serve", serve_phase, torch, timer)
     main_quantized = run("serve_quantized", serve_quantized_phase, torch,
                          timer)
+    main_dense = run("serve_dense", serve_dense_phase, torch, timer)
     run("preempt", preempt_phase, torch)
     run("parity", parity_phase, torch)
     if failed:
@@ -1175,7 +1486,13 @@ def main() -> int:
                "paged_decode_attention_q4": (
                    "src/repro_torch/csrc/paged_decode_attention_q4.cu",
                    "src/repro/kernels/decode_attention.py:313",
-                   main_quantized)}
+                   main_quantized),
+               "flash_attention": (
+                   "src/repro_torch/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:83", main_dense),
+               "decode_attention": (
+                   "src/repro_torch/csrc/decode_attention.cu",
+                   "src/repro/kernels/decode_attention.py:96", main_dense)}
     kernels = []
     for kname, (source, replaces, main) in sources.items():
         r = main[kname]

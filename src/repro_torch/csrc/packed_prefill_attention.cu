@@ -39,24 +39,16 @@
 // Scores, the online softmax and P.V accumulate in f32; p is rounded to the
 // value dtype before P.V; l is clamped at 1e-30.
 //
-// Each key tile of kBK keys is staged in shared memory with kBatch loads in
-// flight per thread; each thread then computes a 2 x 4 block of the scores
-// and keeps a 4-row x kD/16 block of the P.V accumulator in registers, so
-// every value read from shared memory feeds several FMAs (shared-memory
-// bandwidth, not the FMA units, is what binds a CUDA-core version).  Tensor
-// cores (wgmma) and TMA-fed pipelines are the next step.
+// The online-softmax step over each staged key tile (register tiles, f32
+// accumulation) is flash_tile.cuh's, shared with flash_attention.cu.
 #include "common.cuh"
+#include "flash_tile.cuh"
 
 namespace {
 
-constexpr int kRows = 64;     // (token, head) query rows per block
-constexpr int kBK = 32;       // keys per tile
-constexpr int kThreads = 256;
-constexpr int kBatch = 8;     // loads in flight per thread while staging
-
-__device__ __forceinline__ bool visible(int k_pos, int q_pos, int window) {
-  return k_pos >= 0 && k_pos <= q_pos && (window <= 0 || q_pos - k_pos < window);
-}
+using flash_tile::kBK;
+using flash_tile::kRows;
+using flash_tile::kThreads;
 
 template <typename T, int kD>
 __global__ void __launch_bounds__(kThreads)
@@ -67,9 +59,6 @@ packed_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                       const int* __restrict__ lengths, T* __restrict__ out,
                       int T_len, int H, int Hkv, int n_pages, int P, int W,
                       int ring, int window, float scale) {
-  constexpr int kDp = kD + 1;             // padded rows: no bank conflicts
-  constexpr int kPs = kBK + 1;
-  constexpr int kDPer = kD / 16;          // accumulator columns per thread
   const int n = blockIdx.x;
   const int h = blockIdx.y;
   const int G = H / Hkv;
@@ -80,157 +69,15 @@ packed_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   if (q0 >= len) return;
   const int nq = min(BQ, len - q0);        // real query tokens in this tile
   extern __shared__ long long smem[];
-  long long* krow = smem;                  // [kBK] element offset of each
-                                           // staged key row (its head's slice)
-  int* kpos = reinterpret_cast<int*>(krow + kBK);  // [kBK] positions, -1 = invalid
-  float* q_s = reinterpret_cast<float*>(kpos + kBK);  // [kRows][kDp]
-  float* k_s = q_s + kRows * kDp;          // [kBK][kDp]
-  float* v_s = k_s + kBK * kDp;            // [kBK][kD]
-  float* p_s = v_s + kBK * kD;             // [kRows][kPs] scores, then p
-  float* m_s = p_s + kRows * kPs;          // [kRows] running max
-  float* l_s = m_s + kRows;                // [kRows] running denominator
-  float* c_s = l_s + kRows;                // [kRows] this tile's correction
+  flash_tile::Tile<T, kD> tile(smem);
   const int tid = threadIdx.x;
   const size_t row = static_cast<size_t>(Hkv) * kD;  // token stride
 
-  // query rows: row r is (token q0 + r / G, head h * G + r % G)
-  for (int i = tid; i < kRows * kD; i += kThreads) {
-    const int r = i / kD, d = i % kD;
-    const int qr = r / G;
-    float x = 0.f;
-    if (qr < nq)
-      x = to_f32(q[(static_cast<size_t>(start + q0 + qr) * H + h * G + r % G) * kD + d]);
-    q_s[r * kDp + d] = x;
-  }
-  for (int r = tid; r < kRows; r += kThreads) {
-    m_s[r] = NEG_INF;
-    l_s[r] = 0.f;
-  }
-
-  // this thread's P.V block: rows pr0..pr0+3, columns pd0 + 16 * u
-  const int pr0 = (tid / 16) * 4, pd0 = tid % 16;
-  float acc[4][kDPer];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int u = 0; u < kDPer; ++u) acc[a][u] = 0.f;
-  // this thread's score block: rows sr0, sr0+1, columns sc0 + 8 * u
-  const int sr0 = (tid / 8) * 2, sc0 = tid % 8;
-  // this thread's softmax share: row tid / 4, columns (tid % 4) * 8 ...+7
-  const int xr = tid / 4, xc0 = (tid % 4) * (kBK / 4);
-
-  // stage the kBK key rows of kpos / krow from `keys` / `vals` (zero rows
-  // where invalid): kBatch loads per thread are issued before any is
-  // stored, so the memory latency overlaps instead of adding up
-  auto stage = [&](const T* keys, const T* vals) {
-#pragma unroll
-    for (int base = 0; base < kBK * kD; base += kBatch * kThreads) {
-      float kx[kBatch], vx[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = base + u * kThreads + tid;
-        kx[u] = 0.f;
-        vx[u] = 0.f;
-        if (i < kBK * kD && kpos[i / kD] >= 0) {
-          const size_t at = static_cast<size_t>(krow[i / kD]) + i % kD;
-          kx[u] = to_f32(keys[at]);
-          vx[u] = to_f32(vals[at]);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = base + u * kThreads + tid;
-        if (i < kBK * kD) {
-          k_s[(i / kD) * kDp + i % kD] = kx[u];
-          v_s[i] = vx[u];
-        }
-      }
-    }
-    __syncthreads();
+  // row r is (token q0 + r / G, head h * G + r % G) of the flat stream
+  auto q_row = [=](int r) {
+    return (static_cast<size_t>(start + q0 + r / G) * H + h * G + r % G) * kD;
   };
-
-  // one staged key tile -> scores, online softmax, P.V
-  auto update = [&]() {
-    {
-      float s[2][4];
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) s[a][u] = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < kD; ++d) {
-        const float qa = q_s[sr0 * kDp + d], qb = q_s[(sr0 + 1) * kDp + d];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float kv = k_s[(sc0 + 8 * u) * kDp + d];
-          s[0][u] += qa * kv;
-          s[1][u] += qb * kv;
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        const int r = sr0 + a;
-        const int q_pos = off + q0 + r / G;
-        const bool live = r / G < nq;
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int c = sc0 + 8 * u;
-          p_s[r * kPs + c] =
-              (live && visible(kpos[c], q_pos, window)) ? s[a][u] * scale : NEG_INF;
-        }
-      }
-    }
-    __syncthreads();
-    {
-      // four threads per row (adjacent lanes), eight columns each
-      const int q_pos = off + q0 + xr / G;
-      const bool live = xr / G < nq;
-      float* pr = p_s + xr * kPs;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int c = xc0; c < xc0 + kBK / 4; ++c)
-        if (live && visible(kpos[c], q_pos, window)) mx = fmaxf(mx, pr[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_s[xr], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = xc0; c < xc0 + kBK / 4; ++c) {
-        float p = 0.f;
-        if (live && visible(kpos[c], q_pos, window)) p = expf(pr[c] - m_new);
-        sum += p;
-        pr[c] = round_to<T>(p);
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if ((tid & 3) == 0) {
-        const float corr = expf(m_s[xr] - m_new);
-        l_s[xr] = l_s[xr] * corr + sum;
-        m_s[xr] = m_new;
-        c_s[xr] = corr;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const float corr = c_s[pr0 + a];
-#pragma unroll
-      for (int u = 0; u < kDPer; ++u) acc[a][u] *= corr;
-    }
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float p[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) p[a] = p_s[(pr0 + a) * kPs + c];
-#pragma unroll
-      for (int u = 0; u < kDPer; ++u) {
-        const float v = v_s[c * kD + pd0 + 16 * u];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) acc[a][u] += p[a] * v;
-      }
-    }
-    __syncthreads();
-  };
+  tile.load_queries(q, q_row, nq, G);
 
   // 1. the segment's history in the page pool
   const int n_hist = off > 0 ? min(min(ring, off), W * P) : 0;
@@ -250,12 +97,12 @@ packed_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                static_cast<long long>(h) * kD;
         }
       }
-      kpos[tid] = pos;
-      krow[tid] = at;
+      tile.kpos[tid] = pos;
+      tile.krow[tid] = at;
     }
     __syncthreads();
-    stage(k_pages, v_pages);
-    update();
+    tile.stage(k_pages, v_pages);
+    tile.update(off + q0, nq, G, window, true, scale);
   }
 
   // 2. the segment's own stream keys, causal: none past the tile's last query
@@ -263,25 +110,18 @@ packed_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   for (int t0 = 0; t0 < k_end; t0 += kBK) {
     if (tid < kBK) {
       const bool ok = t0 + tid < k_end;
-      kpos[tid] = ok ? off + t0 + tid : -1;
-      krow[tid] = ok ? static_cast<long long>(start + t0 + tid) * static_cast<long long>(row) +
-                           static_cast<long long>(h) * kD
-                     : 0;
+      tile.kpos[tid] = ok ? off + t0 + tid : -1;
+      tile.krow[tid] = ok ? static_cast<long long>(start + t0 + tid) *
+                                    static_cast<long long>(row) +
+                                static_cast<long long>(h) * kD
+                          : 0;
     }
     __syncthreads();
-    stage(k_new, v_new);
-    update();
+    tile.stage(k_new, v_new);
+    tile.update(off + q0, nq, G, window, true, scale);
   }
 
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = pr0 + a;
-    if (r / G >= nq) continue;
-    const float inv = 1.f / fmaxf(l_s[r], 1e-30f);
-    T* o = out + (static_cast<size_t>(start + q0 + r / G) * H + h * G + r % G) * kD;
-#pragma unroll
-    for (int u = 0; u < kDPer; ++u) o[pd0 + 16 * u] = from_f32<T>(acc[a][u] * inv);
-  }
+  tile.store(out, q_row, nq, G);
 }
 
 template <typename T, int kD>
@@ -291,12 +131,8 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                    void* out, int T_len, int H, int Hkv, int N, int n_pages,
                    int P, int W, int ring, int window, float scale,
                    cudaStream_t stream) {
-  const int G = H / Hkv;
-  const int BQ = kRows / G;
-  const size_t smem =
-      (static_cast<size_t>(kRows) * (kD + 1) + kBK * (kD + 1) + kBK * kD +
-       kRows * (kBK + 1) + 3 * kRows) * sizeof(float) +
-      kBK * (sizeof(long long) + sizeof(int));
+  const int BQ = kRows / (H / Hkv);
+  const size_t smem = flash_tile::smem_bytes<kD>();
   cudaError_t err = allow_smem(packed_prefill_kernel<T, kD>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(N, Hkv, (T_len + BQ - 1) / BQ);

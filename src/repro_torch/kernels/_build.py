@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 KERNELS = ("paged_decode_attention", "packed_prefill_attention", "gemv_int8",
-           "paged_decode_attention_q4")
+           "paged_decode_attention_q4", "flash_attention", "decode_attention")
 
 # torch dtype -> the dtype code of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,6 +45,8 @@ SIGNATURES = {
     "gemv_int8": [I, I, P, P, P, P, P, I, I, I, I, I, P],
     "paged_decode_attention_q4":
         [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P],
+    "flash_attention": [I, P, P, P, P, I, I, I, I, I, I, I, F, P],
+    "decode_attention": [I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
 }
 
 _lock = threading.Lock()

@@ -1,12 +1,13 @@
-"""Paged flash-decode on the card: the wrappers of
-``csrc/paged_decode_attention.cu`` (float pages) and
-``csrc/paged_decode_attention_q4.cu`` (packed-int4 pages).
+"""Flash-decode on the card: the wrappers of
+``csrc/paged_decode_attention.cu`` (float pages),
+``csrc/paged_decode_attention_q4.cu`` (packed-int4 pages) and
+``csrc/decode_attention.cu`` (the dense per-slot arena).
 
-They replace the Pallas ``paged_decode_attention`` and
-``paged_decode_attention_q4`` (src/repro/kernels/decode_attention.py:186,
-:313).  The source files state what bounds each kernel and how its layout
-answers that; ``kernels/ref.py`` holds the plain PyTorch versions the CPU
-path and the card's checks use.
+They replace the Pallas ``paged_decode_attention``,
+``paged_decode_attention_q4`` and ``decode_attention``
+(src/repro/kernels/decode_attention.py:186, :313, :96). The source files state
+what bounds each kernel and how its layout answers that; ``kernels/ref.py``
+holds the plain PyTorch versions the CPU path and the card's checks use.
 """
 
 from __future__ import annotations
@@ -98,6 +99,38 @@ def paged_decode_attention_q4(q, k_pages, k_scales, v_pages, v_scales,
     return out
 
 
+def decode_attention(q, k_cache, v_cache, lengths):
+    """q [B,H,D]; k_cache/v_cache [B,S,Hkv,D] the dense arena, one slot per
+    row; lengths [B] int32 valid leading positions per row (entries at or
+    past a length are never read).  Returns [B,H,D] in q's dtype.
+
+    CUDA tensors only: anything the kernel does not take raises."""
+    name = "decode_attention"
+    _check_query(name, q)
+    B, H, D = q.shape
+    Bc, S, Hkv, Dk = k_cache.shape
+    if (v_cache.shape != k_cache.shape or Bc != B or Dk != D or H % Hkv
+            or D not in _HEAD_DIMS):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k_cache.shape)} v {tuple(v_cache.shape)} "
+                         f"(head dim one of {_HEAD_DIMS})")
+    if lengths.shape != (B,):
+        raise ValueError(f"{name}: lengths {tuple(lengths.shape)} for batch "
+                         f"{B}")
+    _build.check_tensors(name, [q, k_cache, v_cache], q.dtype, q.device)
+    _build.check_tensors(name, [lengths], torch.int32, q.device)
+    fn = _build.function(name)
+    out, part_acc, part_ml, n_split = _outputs(q, Hkv, S)
+    err = fn(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
+             v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+             part_acc.data_ptr(), part_ml.data_ptr(), B, H, Hkv, D, S, _SPLIT,
+             n_split, 1.0 / math.sqrt(D),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check_cuda(name, err)
+    decode_attention.launches += 1
+    return out
+
+
 def _check_query(name, q):
     if q.device.type != "cuda":
         raise ValueError(f"{name}: the kernel runs on CUDA tensors, got "
@@ -114,7 +147,7 @@ def _check_tables(name, block_tables, lengths, B, device):
 
 
 def _outputs(q, Hkv, span):
-    """The output and the split-K scratch of both kernels: partial
+    """The output and the split-K scratch of the three kernels: partial
     accumulators [B,Hkv,n_split,G,D] and (m, l) pairs, f32."""
     B, H, D = q.shape
     n_split = -(-span // _SPLIT)
@@ -127,3 +160,4 @@ def _outputs(q, Hkv, span):
 # launches of each kernel (the wrapper counts each, and nothing else does)
 paged_decode_attention.launches = 0
 paged_decode_attention_q4.launches = 0
+decode_attention.launches = 0

@@ -1,11 +1,14 @@
-"""Packed-prefill attention on the card: the wrapper of
-``csrc/packed_prefill_attention.cu``.
+"""Prefill attention on the card: the wrappers of
+``csrc/flash_attention.cu`` (whole-prompt flash attention) and
+``csrc/packed_prefill_attention.cu`` (the packed multi-request stream).
 
-Replaces the Pallas ``packed_prefill_attention``
-(src/repro/kernels/flash_attention.py:217).  Unlike the Pallas kernel it
-tiles per segment, so it serves streams whose segments are aligned to any
-``pack_align`` (the serving default is 8).  ``kernels/ref.py`` holds the
-plain PyTorch version.
+They replace the Pallas ``flash_attention`` and ``packed_prefill_attention``
+(src/repro/kernels/flash_attention.py:83, :217).  Unlike the Pallas
+kernels, neither needs a length that is a multiple of its tile: the flash
+kernel masks a ragged last tile, and the packed kernel tiles per segment,
+so it serves streams whose segments are aligned to any ``pack_align`` (the
+serving default is 8).  ``kernels/ref.py`` holds the plain PyTorch
+versions.
 """
 
 from __future__ import annotations
@@ -16,12 +19,40 @@ import torch
 
 from repro_torch.kernels import _build
 
-# (token, head) query rows per block of the kernel: G = H / Hkv must
+# (token, head) query rows per block of both kernels: G = H / Hkv must
 # divide it
 _ROWS = 64
-# head dims the kernel is instantiated for: the reduced (16) and full (128)
+# head dims the kernels are instantiated for: the reduced (16) and full (128)
 # configurations
 _HEAD_DIMS = (16, 128)
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+    """q [B,H,T,D]; k/v [B,Hkv,T,D] (GQA: query head h*G + g reads kv head
+    h).  Causal (and, with ``window`` > 0, sliding-window) attention with
+    scale 1/sqrt(D).  Returns [B,H,T,D] in q's dtype.
+
+    CUDA tensors only: anything the kernel does not take raises."""
+    name = "flash_attention"
+    _check_query(name, q)
+    B, H, T, D = q.shape
+    if (k.shape[0] != B or k.shape[2:] != (T, D) or v.shape != k.shape
+            or H % k.shape[1] or _ROWS % (H // k.shape[1])
+            or D not in _HEAD_DIMS):
+        raise ValueError(
+            f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} v "
+            f"{tuple(v.shape)} (H/Hkv must divide {_ROWS}, head dim one of "
+            f"{_HEAD_DIMS})")
+    _build.check_tensors(name, [q, k, v], q.dtype, q.device)
+    fn = _build.function(name)
+    out = torch.empty_like(q)
+    err = fn(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+             v.data_ptr(), out.data_ptr(), B, T, H, k.shape[1], D,
+             int(bool(causal)), int(window), 1.0 / math.sqrt(D),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check_cuda(name, err)
+    flash_attention.launches += 1
+    return out
 
 
 def packed_prefill_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
@@ -36,11 +67,7 @@ def packed_prefill_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
 
     CUDA tensors only: anything the kernel does not take raises."""
     name = "packed_prefill_attention"
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: the kernel runs on CUDA tensors, got "
-                         f"{q.device}")
-    if q.dtype not in _build.DTYPE_CODES:
-        raise ValueError(f"{name}: unsupported dtype {q.dtype}")
+    _check_query(name, q)
     T, H, D = q.shape
     n_pages, P, Hkv, Dk = k_pages.shape
     if (k_new.shape != (T, Hkv, D) or v_new.shape != k_new.shape
@@ -75,5 +102,14 @@ def packed_prefill_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
     return out
 
 
-# launches of the kernel (the wrapper counts each, and nothing else does)
+def _check_query(name, q):
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel runs on CUDA tensors, got "
+                         f"{q.device}")
+    if q.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"{name}: unsupported dtype {q.dtype}")
+
+
+# launches of each kernel (the wrapper counts each, and nothing else does)
+flash_attention.launches = 0
 packed_prefill_attention.launches = 0

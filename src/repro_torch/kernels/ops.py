@@ -24,6 +24,19 @@ def _on_cpu(t) -> bool:
     raise ValueError(f"no kernel for device {t.device}")
 
 
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+    """Whole-prompt prefill attention: q [B,H,T,D], kv [B,Hkv,T,D]."""
+    fn = _ref.flash_attention_ref if _on_cpu(q) else _fa.flash_attention
+    return fn(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k_cache, v_cache, lengths):
+    """Decode attention: q [B,H,D] vs the dense arena [B,S,Hkv,D], the
+    leading lengths[b] positions of row b valid."""
+    fn = _ref.decode_attention_ref if _on_cpu(q) else _da.decode_attention
+    return fn(q, k_cache, v_cache, lengths)
+
+
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
     """Paged decode attention: q [B,H,D] vs pool [n_pages,P,Hkv,D] gathered
     through block_tables [B,W] (entries >= n_pages: unallocated)."""

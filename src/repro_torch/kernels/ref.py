@@ -12,6 +12,63 @@ import torch
 from repro_torch.serving.quantized_cache import dequantize, unpack_int4
 
 NEG_INF = -1e30
+# query rows per step of ``flash_attention_ref``: its f32 scores stay at
+# [B, H, 256, T] (at T = 8000 and H = 32, 262 MB) instead of [B, H, T, T]
+_FLASH_REF_BQ = 256
+
+
+def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0):
+    """Plain version of ``flash_attention``: q [B,H,T,D], k/v [B,Hkv,T,D]
+    (GQA), scores in f32 with scale 1/sqrt(D), masked (causal, and a sliding
+    window when ``window`` > 0) to -1e30, softmax in f32, P.V with p
+    rounded to the value dtype, in q's dtype.  Walks the queries in blocks
+    of ``_FLASH_REF_BQ``, each against only the keys some query of the
+    block can see, so any T works and no [T, T] tensor is built."""
+    B, H, T, D = q.shape
+    Hkv = k.shape[1]
+    G = H // Hkv
+    qg = q.reshape(B, Hkv, G, T, D)
+    out = torch.empty_like(q).reshape(B, Hkv, G, T, D)
+    idx = torch.arange(T, device=q.device)
+    for i0 in range(0, T, _FLASH_REF_BQ):
+        i1 = min(i0 + _FLASH_REF_BQ, T)
+        lo = max(i0 - window + 1, 0) if window > 0 else 0
+        hi = i1 if causal else T
+        kk, vv = k[:, :, lo:hi].float(), v[:, :, lo:hi]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg[:, :, :, i0:i1].float(),
+                         kk) / math.sqrt(D)
+        rows, cols = idx[i0:i1, None], idx[None, lo:hi]
+        ok = torch.ones((i1 - i0, hi - lo), dtype=torch.bool,
+                        device=q.device)
+        if causal:
+            ok &= cols <= rows
+        if window > 0:
+            ok &= (rows - cols) < window
+        p = torch.softmax(torch.where(ok, s, NEG_INF), dim=-1)
+        out[:, :, :, i0:i1] = torch.einsum(
+            "bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), vv.float()).to(q.dtype)
+    return out.reshape(B, H, T, D)
+
+
+def decode_attention_ref(q, k_cache, v_cache, lengths):
+    """Plain version of ``decode_attention``: q [B,H,D] against the dense
+    arena [B,S,Hkv,D], positions at or past ``lengths`` masked, softmax in
+    f32, P.V with p rounded to the value dtype.  Masked V rows are zeroed,
+    so whatever a masked row holds never reaches the output."""
+    B, H, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hkv
+    valid = (torch.arange(S, device=q.device)[None, :]
+             < lengths.long()[:, None])                            # [B, S]
+    qg = q.reshape(B, Hkv, G, D).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float()) / math.sqrt(D)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    v = torch.where(valid[:, :, None, None], v_cache,
+                    torch.zeros_like(v_cache))
+    ctx = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(),
+                       v.float())
+    return ctx.reshape(B, H, D).to(q.dtype)
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths):

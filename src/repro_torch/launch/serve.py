@@ -1,9 +1,12 @@
 """Serving CLI of the PyTorch port: batched greedy requests through the
-paged, packed-prefill engine (port of the main path of
-src/repro/launch/serve.py).
+packed-prefill engine over the paged pool or the dense arena (port of the
+main path of src/repro/launch/serve.py).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
       --requests 4 --prompt-len 1024 --max-new 64 --n-pages 1024
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
+      --no-paged --max-len 8192 --prefill-chunk 0 --prompt-len 8000
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --reduced --device cpu          # the plain PyTorch path, no card
@@ -12,8 +15,12 @@ src/repro/launch/serve.py).
 at engine build (decode-shaped products then run in the int8 GEMV kernel);
 ``--kv-dtype int8`` stores KV pages int8 and ``--kv-dtype int4`` packs them
 two nibbles per byte, both with per-token scale pages (int4 decode runs in
-the int4 paged decode kernel).  Every run is paged, so the reference's
-"quantized KV needs --paged" check always holds here.
+the int4 paged decode kernel); quantized KV needs the paged pool.
+
+``--no-paged`` serves from the dense arena of ``--max-len`` positions per
+slot (the JAX CLI's default; this one defaults to the paged pool).  There
+``--prefill-chunk 0`` prefills every prompt whole, in the flash-attention
+kernel above 2048 tokens, and decode runs in the dense flash-decode kernel.
 
 Weights are random, drawn from ``--seed`` on the device (no checkpoint is
 read).  ``--reduced`` runs the family's tiny f32 config.  The engine runs on
@@ -44,8 +51,16 @@ def main(argv=None) -> int:
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--strategy", default="halo",
                     choices=["halo", "cent", "attacc"])
+    ap.add_argument("--max-len", type=int, default=512,
+                    help="dense arena positions per slot (--no-paged)")
+    ap.add_argument("--paged", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="the paged KV pool (default here); --no-paged "
+                         "serves from the dense arena, which is the JAX "
+                         "CLI's default")
     ap.add_argument("--prefill-chunk", type=int, default=2048,
-                    help="tokens per prefill chunk (chunked prefill)")
+                    help="tokens per prefill chunk (chunked prefill); 0 "
+                         "prefills each prompt whole (--no-paged only)")
     ap.add_argument("--max-prefill-tokens", type=int, default=8192,
                     help="per-tick prefill token budget")
     ap.add_argument("--page-size", type=int, default=16,
@@ -86,7 +101,8 @@ def main(argv=None) -> int:
                                max_decode_batch=args.max_batch,
                                prefill_chunk=args.prefill_chunk,
                                max_prefill_tokens=args.max_prefill_tokens),
-        seed=args.seed, paged=True, page_size=args.page_size,
+        seed=args.seed, max_len=args.max_len, paged=args.paged,
+        page_size=args.page_size,
         n_pages=args.n_pages, kv_dtype=args.kv_dtype,
         weights_dtype=args.weights_dtype)
     engine = ServingEngine(cfg, params, sc, device=device)
@@ -96,7 +112,9 @@ def main(argv=None) -> int:
                             dtype=np.int32) for _ in range(args.requests)]
     kernels = (decode_attention.paged_decode_attention,
                flash_attention.packed_prefill_attention, gemv_cid.gemv,
-               decode_attention.paged_decode_attention_q4)
+               decode_attention.paged_decode_attention_q4,
+               flash_attention.flash_attention,
+               decode_attention.decode_attention)
     launches0 = [k.launches for k in kernels]
     t0 = time.monotonic()
     done = engine.generate(prompts,
@@ -120,7 +138,9 @@ def main(argv=None) -> int:
           f"decode={occ['decode']:.2f} mixed={occ['mixed']:.2f}  "
           f"host-transfers={engine.host_transfers}")
     kv = engine.kv_bytes()
-    print(f"kv=paged[{args.n_pages}x{args.page_size},{args.kv_dtype}] "
+    arena = (f"paged[{args.n_pages}x{args.page_size},{args.kv_dtype}]"
+             if args.paged else f"dense[{args.max_batch}x{args.max_len}]")
+    print(f"kv={arena} "
           f"weights={args.weights_dtype} "
           f"reserved={kv['reserved'] / 1e6:.2f}MB "
           f"peak-resident={kv['peak_resident'] / 1e6:.2f}MB "

@@ -1,6 +1,14 @@
-"""Attention over the paged KV pool — the serving main path (port of the
-paged part of src/repro/models/attention.py).
+"""Attention for serving (port of the dense-attention part of
+src/repro/models/attention.py): over the paged KV pool, and over the
+dense per-slot decode arena.
 
+* ``attn_prefill`` — whole-prompt attention: dense masked attention up to
+  ``dense_threshold`` tokens, the flash-attention kernel above it.
+* ``attn_decode`` — one new token per row against the dense arena
+  [B, S, Hkv, D], through the dense flash-decode kernel;
+  ``attn_chunk_packed`` — a packed prefill stream against the dense arena,
+  through the packed-prefill kernel with the arena viewed as one S-token
+  page per slot.
 * ``attn_decode_paged`` — one new token per sequence against a float pool,
   through the paged flash-decode kernel (HALO's CiD phase);
   ``attn_decode_q8_paged`` against an int8 pool (both contractions s8 x s8,
@@ -11,12 +19,13 @@ paged part of src/repro/models/attention.py).
   pool is dequantized to the activation dtype for it, and the chunk's K/V
   are quantized on the way in.
 
-Both update the pool IN PLACE: the reference scatters functionally with
-``.at[...].set(..., mode="drop")`` and relies on out-of-range sentinel
-indices being dropped; here the dropped rows are filtered out before an
-in-place ``index_put_`` (an out-of-range index is an error on the CPU and
-undefined on CUDA).  The pools are zero-initialized and only ever written
-with finite values, and every read path masks unwritten entries.
+The serving paths update the pool or arena IN PLACE: the reference
+scatters functionally with ``.at[...].set(..., mode="drop")`` and relies
+on out-of-range sentinel indices being dropped; here the dropped rows are
+filtered out before an in-place ``index_put_`` (an out-of-range index is
+an error on the CPU and undefined on CUDA).  The pools and arenas are
+zero-initialized and only ever written with finite values, and every read
+path masks unwritten entries.
 
 Quantized pools carry ``k_scale``/``v_scale`` pages ([n_pages, P, Hkv]
 f32) beside ``k``/``v``: int8 [n_pages, P, Hkv, D], or uint8 nibble pairs
@@ -109,6 +118,68 @@ def _write_pool(cache, write, k, v) -> None:
     cache["k_scale"][w_page, w_off] = ks
     cache["v"][w_page, w_off] = vq
     cache["v_scale"][w_page, w_off] = vs
+
+
+# ---------------------------------------------------------------------------
+# whole-prompt prefill
+# ---------------------------------------------------------------------------
+
+def _dense_attention(q, k, v, positions, kv_positions, window, softcap,
+                     pad_mask=None):
+    """Masked attention (the reference's ``_dense_attention``,
+    src/repro/models/attention.py:103).  q: [B,Tq,H,D], k/v: [B,Tk,Hkv,D],
+    positions [B,Tq] and kv_positions [B,Tk]; causal, windowed when
+    ``window`` > 0, keys outside ``pad_mask`` [B,Tk] masked.  Scores and
+    softmax in f32, P.V with p in v's dtype; returns [B,Tq,H,D] in q's
+    dtype."""
+    B, Tq, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, Tq, Hkv, G, D).float()
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(D)
+    scores = _maybe_softcap(scores, softcap)
+    pq = positions[:, :, None]                                   # [B,Tq,1]
+    pk = kv_positions[:, None, :]                                # [B,1,Tk]
+    w = int(window) if int(window) > 0 else _INT32_MAX
+    valid = (pk <= pq) & ((pq - pk) < w)
+    if pad_mask is not None:
+        valid = valid & pad_mask[:, None, :]
+    scores = torch.where(valid[:, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(B, Tq, H, D).to(q.dtype)
+
+
+def attn_prefill(params, x, positions, *, n_heads, n_kv_heads, d_head,
+                 theta, window, softcap=0.0, qk_norm=False,
+                 dense_threshold: int = 2048, pad_mask=None):
+    """Full-sequence attention over ``positions`` [B,T] (contiguous from 0,
+    as the whole-prompt forward gives them).  Returns (out [B,T,d_model],
+    (k, v)) — k/v [B,T,Hkv,D] for the arena.
+
+    Dispatch, as the reference's (src/repro/models/attention.py:226): up
+    to ``dense_threshold`` tokens, dense masked attention; above it, the
+    flash-attention kernel (plain version on the CPU), which masks by
+    absolute index.  Softcap or a ``pad_mask`` above the threshold need the
+    reference's blockwise path, which is not ported."""
+    B, T, _ = x.shape
+    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, d_head,
+                           positions, theta, qk_norm)
+    if T <= dense_threshold:
+        out = _dense_attention(q, k, v, positions, positions, window, softcap,
+                               pad_mask=pad_mask)
+    elif (softcap and softcap > 0.0) or pad_mask is not None:
+        raise NotImplementedError(
+            "attn_prefill above dense_threshold with softcap or pad_mask "
+            "(the blockwise path): ROADMAP queue A, item 11")
+    else:
+        out = _kops.flash_attention(
+            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous(), causal=True,
+            window=int(window)).transpose(1, 2)
+    out = matmul(out.reshape(B, T, n_heads * d_head), params["wo"])
+    return out, (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +321,40 @@ def packed_write_index(seg: PackedSegs, bt_rows, ring: int, page_size: int,
     return toks, w_page[toks], (ridx % page_size)[toks]
 
 
+def _chunk_packed(params, x, seg: PackedSegs, cache, bt_rows, ring: int,
+                  write, *, n_heads, n_kv_heads, d_head, theta, window,
+                  softcap, qk_norm):
+    """What both packed prefill paths share: project the stream, attend
+    each token over its segment's ring history (pool ``cache`` [n_pages,
+    P, Hkv, D] through the segments' rows ``bt_rows`` [N, W], ring span
+    ``ring``) and its segment's visible stream tokens, then write the
+    stream's K/V at ``write``.  The history is read BEFORE the write."""
+    _, T, _ = x.shape
+    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, d_head,
+                           seg.positions[None], theta, qk_norm)
+    q, k, v = q[0], k[0], v[0]                                   # [T, ...]
+    if "k_scale" in cache:
+        k_pages, v_pages = _dequantized_pool(cache, x.dtype)
+    else:
+        k_pages, v_pages = cache["k"], cache["v"]
+    if softcap and softcap > 0.0:
+        # no kernel path for softcap (not on the paper's models)
+        prev_k, prev_v, prev_pos = _gather_history(k_pages, v_pages, bt_rows,
+                                                   seg.offsets, ring)
+        ctx = _packed_attention(q, k, v, prev_k, prev_v, prev_pos, seg,
+                                n_heads=n_heads, n_kv_heads=n_kv_heads,
+                                d_head=d_head, window=window, softcap=softcap)
+    else:
+        i32 = torch.int32
+        ctx = _kops.packed_prefill_attention(
+            q, k, v, k_pages, v_pages, bt_rows.to(i32).contiguous(),
+            seg.starts.to(i32), seg.offsets.to(i32), seg.lengths.to(i32),
+            ring=ring, window=int(window)).reshape(T, n_heads * d_head)
+    out = matmul(ctx[None].to(x.dtype), params["wo"])
+    _write_pool(cache, write, k, v)
+    return out
+
+
 def attn_chunk_packed_paged(params, x, seg: PackedSegs, cache, block_table,
                             *, n_heads, n_kv_heads, d_head, theta, window,
                             softcap=0.0, qk_norm=False, write=None):
@@ -270,37 +375,101 @@ def attn_chunk_packed_paged(params, x, seg: PackedSegs, cache, block_table,
 
     Returns (out [1, T, d_model], cache) — the pool updated in place.
     """
-    _, T, _ = x.shape
     n_pages, P = cache["k"].shape[0], cache["k"].shape[1]
     B = block_table.shape[0]
     R = _paged_ring(window, n_pages, P)
-    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, d_head,
-                           seg.positions[None], theta, qk_norm)
-    q, k, v = q[0], k[0], v[0]                                   # [T, ...]
     bt_rows = block_table[seg.slots.clamp(0, B - 1)]             # [N, W]
-    if "k_scale" in cache:
-        k_pages, v_pages = _dequantized_pool(cache, x.dtype)
-    else:
-        k_pages, v_pages = cache["k"], cache["v"]
-    if softcap and softcap > 0.0:
-        # no kernel path for softcap (not on the paper's models)
-        prev_k, prev_v, prev_pos = _gather_history(k_pages, v_pages, bt_rows,
-                                                   seg.offsets, R)
-        ctx = _packed_attention(q, k, v, prev_k, prev_v, prev_pos, seg,
-                                n_heads=n_heads, n_kv_heads=n_kv_heads,
-                                d_head=d_head, window=window, softcap=softcap)
-    else:
-        i32 = torch.int32
-        ctx = _kops.packed_prefill_attention(
-            q, k, v, k_pages, v_pages, bt_rows.to(i32).contiguous(),
-            seg.starts.to(i32), seg.offsets.to(i32), seg.lengths.to(i32),
-            ring=R, window=int(window)).reshape(T, n_heads * d_head)
-    out = matmul(ctx[None].to(x.dtype), params["wo"])
-
     if write is None:
         write = packed_write_index(seg, bt_rows, R, P, n_pages, B)
-    _write_pool(cache, write, k, v)
+    out = _chunk_packed(params, x, seg, cache, bt_rows, R, write,
+                        n_heads=n_heads, n_kv_heads=n_kv_heads,
+                        d_head=d_head, theta=theta, window=window,
+                        softcap=softcap, qk_norm=qk_norm)
     return out, cache
+
+
+def arena_packed_view(seg: PackedSegs, n_slots: int, ring: int):
+    """The dense arena [B, R, Hkv, D] as a page pool of B pages of R
+    tokens (the reference's view, src/repro/models/attention.py:604-610):
+    each segment's block-table row is its slot — the pad segments' slot
+    sentinel B is an unallocated page — and the writes a packed stream
+    makes into it.  Returns (bt_rows [N, 1] int32, write).  The same for
+    every layer of a run."""
+    bt_rows = seg.slots[:, None].to(torch.int32)
+    return bt_rows, packed_write_index(seg, bt_rows, ring, ring, n_slots,
+                                       n_slots)
+
+
+def attn_chunk_packed(params, x, seg: PackedSegs, cache_k, cache_v, *,
+                      n_heads, n_kv_heads, d_head, theta, window,
+                      softcap=0.0, qk_norm=False, view=None):
+    """Packed-stream chunked prefill against the dense decode arena
+    (the reference's ``attn_chunk_packed``, src/repro/models/attention.py:
+    581).
+
+    x: [1, T, d] — one flat stream of N segments described by ``seg``;
+    cache_k/v: [B, R, Hkv, Dh].  Same contract as
+    ``attn_chunk_packed_paged`` over ``arena_packed_view`` (``view``, made
+    here when omitted): ring span R, history read before the stream's
+    K/V are written, each segment's last R tokens written at ring index
+    position % R of its slot.  Returns (out [1, T, d_model], cache_k,
+    cache_v) — the arena updated in place."""
+    B, R = cache_k.shape[0], cache_k.shape[1]
+    bt_rows, write = view if view is not None else arena_packed_view(seg, B,
+                                                                     R)
+    out = _chunk_packed(params, x, seg, {"k": cache_k, "v": cache_v},
+                        bt_rows, R, write, n_heads=n_heads,
+                        n_kv_heads=n_kv_heads, d_head=d_head, theta=theta,
+                        window=window, softcap=softcap, qk_norm=qk_norm)
+    return out, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# decode (dense arena)
+# ---------------------------------------------------------------------------
+
+def arena_write_index(pos, S: int, rows=None):
+    """(rows, ring index) of a dense decode step's arena writes: row b
+    writes position pos[b] at pos % S; only ``rows`` (default: every row)
+    write.  The same for every layer of a run."""
+    if rows is None:
+        rows = torch.arange(pos.shape[0], device=pos.device)
+    return rows, pos[rows] % S
+
+
+def attn_decode(params, x, cache_k, cache_v, pos, *, n_heads, n_kv_heads,
+                d_head, theta, window, softcap=0.0, qk_norm=False,
+                extra_mask=None, write=None):
+    """One-token decode against the dense arena (the reference's
+    ``attn_decode``, src/repro/models/attention.py:836).
+
+    x: [B, 1, d_model]; cache_k/v: [B, S, Hkv, Dh] (a ring of S entries);
+    pos: scalar or [B] absolute position of the NEW token.  The new K/V
+    are written first, IN PLACE, at ring index pos % S — of the rows of
+    ``write`` (an ``arena_write_index``; default every row) only, so an
+    idle serving slot's arena rows are never touched — and then every row
+    attends over its leading min(pos + 1, S) entries, exactly the
+    reference's ``s <= pos | pos >= S`` mask, through the dense
+    flash-decode kernel (plain version on the CPU).  Softcap and
+    ``extra_mask`` have no kernel path and raise.  Returns (out [B,1,d],
+    cache_k, cache_v)."""
+    if (softcap and softcap > 0.0) or extra_mask is not None:
+        raise NotImplementedError(
+            "dense attn_decode with softcap or extra_mask: ROADMAP queue A, "
+            "item 11")
+    B = x.shape[0]
+    S = cache_k.shape[1]
+    pos = torch.as_tensor(pos, device=x.device).long().expand(B)
+    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, d_head,
+                           pos[:, None], theta, qk_norm)
+    rows, idx = write if write is not None else arena_write_index(pos, S)
+    cache_k[rows, idx] = k[rows, 0]
+    cache_v[rows, idx] = v[rows, 0]
+    lengths = torch.clamp(pos + 1, max=S).to(torch.int32)
+    ctx = _kops.decode_attention(q.reshape(B, n_heads, d_head), cache_k,
+                                 cache_v, lengths)
+    ctx = ctx.reshape(B, 1, n_heads * d_head).to(x.dtype)
+    return matmul(ctx, params["wo"]), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,7 @@
-"""Model assembly for the serving main path (port of the dense-attention,
-paged part of src/repro/models/transformer.py).
+"""Model assembly for serving (port of the dense-attention part of
+src/repro/models/transformer.py): whole-prompt prefill, and one-token
+decode and packed chunked prefill over either the paged pool or the dense
+per-slot decode arena.
 
 The layer stack is a sequence of RUNS — maximal groups of layers with one
 block structure — whose parameters are stacked along a leading layer axis,
@@ -99,6 +101,21 @@ def supports_paged(cfg: ModelConfig) -> bool:
     return all(run.kind == "attn" for run in build_plan(cfg))
 
 
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               device) -> List[Any]:
+    """The dense decode arena, zeros: per run {"k", "v"} of [L, batch,
+    cache_len(run, seq_len), Hkv, D] in the model dtype (the reference's
+    ``init_cache``, src/repro/models/transformer.py:208, attention runs)."""
+    dtype = torch_dtype(cfg.dtype)
+    caches: List[Any] = []
+    for run in build_plan(cfg):
+        shape = (run.n_layers, batch, cache_len(run, seq_len),
+                 cfg.n_kv_heads, cfg.d_head)
+        caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                       "v": torch.zeros(shape, dtype=dtype, device=device)})
+    return caches
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -183,6 +200,23 @@ def _ffn_residual(cfg, lp, x):
     return x + ffn(lp["ffn"], h, cfg.act)
 
 
+def _attn_layer_prefill(cfg, run, lp, x, positions):
+    """One attention layer of a whole-prompt prefill: (x, (k, v))."""
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    a, kv = attn_mod.attn_prefill(lp["attn"], h, positions,
+                                  **_attn_kw(cfg, run))
+    return _ffn_residual(cfg, lp, x + a), kv
+
+
+def _attn_layer_decode(cfg, run, lp, x, cache, pos, write=None):
+    """One attention layer of a dense-arena one-token decode step;
+    ``cache`` is the layer's arena view, updated in place."""
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    a, _, _ = attn_mod.attn_decode(lp["attn"], h, cache["k"], cache["v"], pos,
+                                   write=write, **_attn_kw(cfg, run))
+    return _ffn_residual(cfg, lp, x + a)
+
+
 def _attn_layer_decode_paged(cfg, run, lp, x, cache, bt, pos, write=None):
     """One attention layer of a paged one-token decode step; ``cache`` is
     the layer's pool view, updated in place.  A quantized pool (``k_scale``
@@ -209,6 +243,16 @@ def _attn_layer_chunk_packed_paged(cfg, run, lp, x, seg, cache, bt,
     return _ffn_residual(cfg, lp, x + a), cache
 
 
+def _attn_layer_chunk_packed(cfg, run, lp, x, seg, cache, view):
+    """One attention layer of a packed prefill stream against the dense
+    arena (``view``: the run's ``attn_mod.arena_packed_view``)."""
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    a, _, _ = attn_mod.attn_chunk_packed(lp["attn"], h, seg, cache["k"],
+                                         cache["v"], view=view,
+                                         **_attn_kw(cfg, run))
+    return _ffn_residual(cfg, lp, x + a)
+
+
 def _pool_geometry(cache_run, run: RunSpec) -> Tuple[int, int, int]:
     n_pages, P = cache_run["k"].shape[1], cache_run["k"].shape[2]
     return attn_mod._paged_ring(run.window, n_pages, P), P, n_pages
@@ -220,39 +264,121 @@ def _pool_geometry(cache_run, run: RunSpec) -> Tuple[int, int, int]:
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
             *, phase: str = "decode", cache: Optional[List[Any]] = None,
-            pos=None, block_tables: Optional[List[Any]] = None):
-    """Paged one-token decode: batch["tokens"] [B,1], ``cache`` the PAGED
-    pool from ``serving.kv_pool.KVPool`` (one dict of [L, n_pages, P, Hkv,
-    D] leaves per run), ``block_tables`` one [B, W] int32 table per run,
-    ``pos`` [B] the position of each new token.  Returns (logits [B,1,V]
-    f32, cache, 0.0); the pool is updated in place.
+            pos=None, block_tables: Optional[List[Any]] = None,
+            slot_mask=None):
+    """phase == "prefill": batch["tokens"] [B,T], positions 0..T-1.
+        Returns (logits [B,1,V] f32 of the LAST position only, cache, 0.0):
+        per run {"k", "v"} of [L, B, cache_len(run, T), Hkv, D] in ring
+        order (``_pack_prefill_cache``).
+    phase == "decode": batch["tokens"] [B,1], ``pos`` [B] (or a scalar)
+        the position of each new token.  Returns (logits [B,1,V] f32,
+        cache, 0.0), ``cache`` updated in place.  With ``block_tables``
+        (one [B, W] int32 table per run) ``cache`` is the PAGED pool from
+        ``serving.kv_pool.KVPool``; without, it is the dense arena of
+        ``init_cache``, and only the rows of ``slot_mask`` [B] bool (every
+        row when None) write their new K/V.
 
-    The train/prefill phases and the dense arena arrive with ROADMAP queue
-    A, items 11-12."""
-    if phase != "decode" or block_tables is None:
+    The train phase arrives with ROADMAP queue A, item 12."""
+    if phase == "prefill":
+        kvs: List[List[Any]] = [[] for _ in build_plan(cfg)]
+        logits = _prefill(params, cfg, batch["tokens"],
+                          lambda r, l, k, v: kvs[r].append((k, v)))
+        T = batch["tokens"].shape[-1]
+        caches = [_pack_prefill_cache(run, kv, T)
+                  for run, kv in zip(build_plan(cfg), kvs)]
+        return logits, caches, 0.0
+    if phase != "decode":
         raise NotImplementedError(
-            "only the paged decode phase is ported (dense arena, prefill "
-            "and train phases: ROADMAP queue A, items 11-12)")
+            f"phase={phase!r}: the train phase arrives with ROADMAP queue A, "
+            "item 12")
     x = embed_tokens(params, cfg, batch["tokens"])
     B = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device).long().expand(B)
+    rows = (None if slot_mask is None
+            else torch.nonzero(torch.as_tensor(slot_mask,
+                                               device=x.device)).flatten())
     for r, run in enumerate(build_plan(cfg)):
-        bt = block_tables[r]
-        R, P, n_pages = _pool_geometry(cache[r], run)
-        write = attn_mod.paged_write_index(bt, pos, R, P, n_pages)
+        if block_tables is not None:
+            bt = block_tables[r]
+            R, P, n_pages = _pool_geometry(cache[r], run)
+            write = attn_mod.paged_write_index(bt, pos, R, P, n_pages)
+        else:
+            write = attn_mod.arena_write_index(pos, cache[r]["k"].shape[2],
+                                               rows)
         for l in range(run.n_layers):
-            x, _ = _attn_layer_decode_paged(
-                cfg, run, layer_view(params["runs"][r], l), x,
-                layer_view(cache[r], l), bt, pos, write)
+            lp, lc = layer_view(params["runs"][r], l), layer_view(cache[r], l)
+            if block_tables is not None:
+                x, _ = _attn_layer_decode_paged(cfg, run, lp, x, lc, bt, pos,
+                                                write)
+            else:
+                x = _attn_layer_decode(cfg, run, lp, x, lc, pos, write)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params, cfg, x), cache, 0.0
+
+
+def _prefill(params, cfg, tokens, on_kv) -> torch.Tensor:
+    """The whole-prompt forward: every layer at positions 0..T-1, each
+    layer's K/V handed to ``on_kv(run index, layer, k, v)`` as it is made
+    (k/v [B,T,Hkv,D]), the last position's logits [B,1,V] f32 returned."""
+    x = embed_tokens(params, cfg, tokens)
+    B, T = x.shape[0], x.shape[1]
+    positions = torch.arange(T, device=x.device).expand(B, T)
+    for r, run in enumerate(build_plan(cfg)):
+        for l in range(run.n_layers):
+            x, (k, v) = _attn_layer_prefill(
+                cfg, run, layer_view(params["runs"][r], l), x, positions)
+            on_kv(r, l, k, v)
+    x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    return lm_logits(params, cfg, x)
+
+
+def _ring_order(run: RunSpec, x, T: int):
+    """A prefill's K or V [B, T, ...] as the decode ring holds it: the last
+    cache_len(run, T) positions, rolled so index s holds the position p
+    with p % S == s (the reference's ``_pack_prefill_cache``)."""
+    S = cache_len(run, T)
+    x = x[:, T - S:]
+    if run.window > 0 and T > S and T % S != 0:
+        x = torch.roll(x, shifts=T % S, dims=1)
+    return x
+
+
+def _pack_prefill_cache(run: RunSpec, kvs, T: int):
+    """One run's per-layer prefill K/V as the decode cache layout: {"k",
+    "v"} of [L, B, cache_len(run, T), Hkv, D], in ring order."""
+    return {"k": torch.stack([_ring_order(run, k, T) for k, _ in kvs]),
+            "v": torch.stack([_ring_order(run, v, T) for _, v in kvs])}
+
+
+def prefill_into_arena(params: Params, cfg: ModelConfig, batch, slot: int,
+                       cache: List[Any]):
+    """Whole-prompt prefill of one request (batch["tokens"] [1, T]) spliced
+    into arena slot ``slot``: each layer's K/V goes straight into the
+    arena as it is made, in ring order, its last min(T_ring, R) entries at
+    positions [0, pl) of the slot, so the arena ends as the reference's
+    ``splice_arena`` (src/repro/models/transformer.py:842) leaves it,
+    without a stacked copy of every layer.  Returns (last_logits [1, 1, V]
+    f32, cache) — the arena updated in place."""
+    T = batch["tokens"].shape[-1]
+    plan = build_plan(cfg)
+
+    def write(r, l, k, v):
+        for key, x in (("k", k), ("v", v)):
+            a = cache[r][key]
+            x = _ring_order(plan[r], x, T)
+            pl = min(x.shape[1], a.shape[2])
+            a[l, slot, :pl] = x[0, x.shape[1] - pl:]
+
+    return _prefill(params, cfg, batch["tokens"], write), cache
 
 
 def forward_chunk_packed(params: Params, cfg: ModelConfig, tokens, starts,
                          offsets, lengths, slots, cache: List[Any],
                          block_tables: Optional[List[Any]] = None,
                          pack_align: int = 8):
-    """PACKED chunked prefill into the paged pool: one flat token stream.
+    """PACKED chunked prefill: one flat token stream, into the paged pool
+    (one [B, W] table per run in ``block_tables``) or, without tables, into
+    the dense arena of ``init_cache``.
 
     tokens: [T] — N segments (one per request chunk) laid out back to back
     at ``starts`` [N] (non-decreasing, aligned to ``pack_align``; pad
@@ -264,23 +390,27 @@ def forward_chunk_packed(params: Params, cfg: ModelConfig, tokens, starts,
     prompt.  The pool is updated in place.  ``pack_align`` is accepted for
     the reference's signature; the kernel serves any alignment.
     """
-    if block_tables is None:
-        raise NotImplementedError("packed prefill into the dense arena: "
-                                  "later slice (ROADMAP queue A, item 11)")
     tokens = torch.as_tensor(tokens).long()
     T = tokens.shape[-1]
     x = embed_tokens(params, cfg, tokens[None])                  # [1, T, d]
     seg = attn_mod.make_packed_segs(starts, offsets, lengths, slots, T)
     for r, run in enumerate(build_plan(cfg)):
-        bt = block_tables[r]
-        R, P, n_pages = _pool_geometry(cache[r], run)
-        bt_rows = bt[seg.slots.clamp(0, bt.shape[0] - 1)]
-        write = attn_mod.packed_write_index(seg, bt_rows, R, P, n_pages,
-                                            bt.shape[0])
+        if block_tables is None:
+            B, R = cache[r]["k"].shape[1], cache[r]["k"].shape[2]
+            view = attn_mod.arena_packed_view(seg, B, R)
+        else:
+            bt = block_tables[r]
+            R, P, n_pages = _pool_geometry(cache[r], run)
+            bt_rows = bt[seg.slots.clamp(0, bt.shape[0] - 1)]
+            write = attn_mod.packed_write_index(seg, bt_rows, R, P, n_pages,
+                                                bt.shape[0])
         for l in range(run.n_layers):
-            x, _ = _attn_layer_chunk_packed_paged(
-                cfg, run, layer_view(params["runs"][r], l), x, seg,
-                layer_view(cache[r], l), bt, write)
+            lp, lc = layer_view(params["runs"][r], l), layer_view(cache[r], l)
+            if block_tables is None:
+                x = _attn_layer_chunk_packed(cfg, run, lp, x, seg, lc, view)
+            else:
+                x, _ = _attn_layer_chunk_packed_paged(cfg, run, lp, x, seg,
+                                                      lc, bt, write)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     last = (seg.starts + seg.lengths - 1).clamp(0, T - 1)        # [N]
     return lm_logits(params, cfg, x[0, last][:, None, :]), cache

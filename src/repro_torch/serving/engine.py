@@ -1,6 +1,6 @@
 """Serving engine: continuous batching that EXECUTES the phase scheduler's
-plan (port of the paged, packed-prefill, greedy path of
-src/repro/serving/engine.py).
+plan (port of the greedy, packed-prefill path of
+src/repro/serving/engine.py, over the paged pool or the dense arena).
 
 One engine tick = one ``PhaseScheduler.plan_tick`` executed verbatim:
 
@@ -8,20 +8,28 @@ One engine tick = one ``PhaseScheduler.plan_tick`` executed verbatim:
   2. prefill  — the plan's (request, n_tokens) chunks are laid out as ONE
                 flat token stream (``pack_chunks``) and run through the
                 prefill-group program, which writes K/V straight into the
-                paged pool at each request's slot and offset (HALO's CiM ->
-                CiD handoff).  Long prompts prefill across several ticks,
-                interleaved with decode;
+                arena at each request's slot and offset (HALO's CiM -> CiD
+                handoff).  Long prompts prefill across several ticks,
+                interleaved with decode.  With ``prefill_chunk = 0`` each
+                prompt prefills whole in one program instead (the dense
+                arena only), its K/V spliced into its slot;
   3. decode   — one batched token step for every DECODING slot, greedy
                 argmax on the device, one [B] host transfer per tick.
 
-The KV arena is the block pool of ``serving/kv_pool.py``: capacity is a
+The KV arena is either the dense per-slot arena [L, max_batch, max_len,
+Hkv, D] (``paged=False``, the ``ServeConfig`` default: every slot pins
+max_len positions, decode runs on all max_batch rows with per-slot
+positions, and only the active slots write their K/V) or the block pool of
+``serving/kv_pool.py`` (``paged=True``).  In the pool, capacity is a
 POOL property, the scheduler admits prefill tokens only while free pages
 cover them (decode's one-token growth is reserved first), and when the pool
 runs out mid-decode the YOUNGEST page-holding request is preempted — its
 pages return to the pool and it re-queues with its generated tokens folded
 into the prompt (recompute-on-resume), so the oldest request always
-finishes.  Decode attention runs in the paged flash-decode kernel, prefill
-attention in the packed-prefill kernel; the pool is updated in place.
+finishes.  Decode attention runs in the paged (or dense) flash-decode
+kernel, chunked prefill attention in the packed-prefill kernel and a
+whole prompt above 2048 tokens in the flash-attention kernel; the arena is
+updated in place.
 
 The host logic (admission, planning, packing, preemption, retirement,
 counters) is the reference's, line for line where the slice reaches it, so
@@ -47,6 +55,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import (
     forward,
     forward_chunk_packed,
+    init_cache,
+    prefill_into_arena,
     supports_chunked_prefill,
     supports_paged,
 )
@@ -81,7 +91,6 @@ def _unported(sc: ServeConfig) -> Optional[str]:
     """The first ``ServeConfig`` option this slice does not serve, with the
     ROADMAP queue A item that brings it; None when every option is in."""
     checks = [
-        (not sc.paged, "paged=False (the dense arena): item 11"),
         (not sc.packed_prefill, "packed_prefill=False (the padded [N, C] "
                                 "prefill batch): item 11"),
         (sc.prefix_cache, "prefix_cache=True: item 7"),
@@ -153,17 +162,30 @@ class ServingEngine:
                 "that pass none.", DeprecationWarning, stacklevel=2)
         self._default_sampling = sc.default_sampling()
         self.scheduler = PhaseScheduler(sc.phase)
-        B = sc.max_batch
-        if not supports_paged(cfg):
-            raise ValueError(f"{cfg.name}: paged serving needs an "
-                             "all-attention plan")
-        if sc.phase.prefill_chunk <= 0:
-            raise ValueError("paged serving requires chunked prefill "
-                             "(prefill_chunk > 0)")
-        self.pool = KVPool(cfg, n_slots=B, n_pages=sc.n_pages,
-                           page_size=sc.page_size, kv_dtype=sc.kv_dtype,
-                           device=self.device)
-        self.cache = self.pool.caches
+        B, S = sc.max_batch, sc.max_len
+        self.paged = sc.paged
+        self.pool: Optional[KVPool] = None
+        if sc.paged:
+            if not supports_paged(cfg):
+                raise ValueError(f"{cfg.name}: paged serving needs an "
+                                 "all-attention plan")
+            if sc.phase.prefill_chunk <= 0:
+                raise ValueError("paged serving requires chunked prefill "
+                                 "(prefill_chunk > 0)")
+            self.pool = KVPool(cfg, n_slots=B, n_pages=sc.n_pages,
+                               page_size=sc.page_size, kv_dtype=sc.kv_dtype,
+                               device=self.device)
+            self.cache = self.pool.caches
+        else:
+            if sc.kv_dtype != "f32":
+                raise ValueError(
+                    f"kv_dtype={sc.kv_dtype!r} requires paged=True (the "
+                    "dense engine stores the arena in the model dtype)")
+            self.cache = init_cache(cfg, B, S, self.device)
+        # the dense arena pins its full footprint up front
+        self._dense_kv_bytes = 0 if sc.paged else sum(
+            leaf.numel() * leaf.element_size()
+            for c in self.cache for leaf in c.values())
         self.slot_pos = np.full((B,), -1, np.int64)     # next write position
         self.slot_req: List[Optional[Request]] = [None] * B
         self.queue: List[Request] = []
@@ -184,10 +206,14 @@ class ServingEngine:
         self.decode_tokens_emitted = 0
         self.decode_slot_ticks = 0       # (request, tick) decode occupancies
         self._next_id = 0
-        self.chunked = supports_chunked_prefill(cfg)
+        self.chunked = (supports_chunked_prefill(cfg)
+                        and sc.phase.prefill_chunk > 0)
         self.prefill_launches = 0        # prefill phase-program calls
         self.prefill_rows_executed = 0   # token rows computed (incl. pad)
         self.executor = make_executor(sc.executor, {
+            "whole": self._prefill_whole_impl,
+            "decode": self._decode_impl,
+            "packed": self._prefill_packed_impl,
             "decode_paged": self._decode_paged_impl,
             "packed_paged": self._prefill_packed_paged_impl,
         }, metrics=self.metrics)
@@ -205,6 +231,37 @@ class ServingEngine:
         self.executor.note_compile(group, kind, shape, all_greedy)
 
     # -- phase programs ---------------------------------------------------------
+    @torch.inference_mode()
+    def _prefill_whole_impl(self, params, tokens, slot, cache, all_greedy):
+        """Whole-prompt prefill of one request (tokens [1, T]) with its K/V
+        spliced into arena slot ``slot``.  Returns [1] int32 tokens."""
+        logits, cache = prefill_into_arena(params, self.cfg,
+                                           {"tokens": tokens}, slot, cache)
+        return sample_greedy(logits), cache
+
+    @torch.inference_mode()
+    def _prefill_packed_impl(self, params, tokens, starts, offsets, lengths,
+                             slots, cache, all_greedy):
+        """Packed-stream chunk prefill into the dense arena: the tick's
+        chunks as one flat [T] token stream.  Returns [N] int32 tokens."""
+        logits, cache = forward_chunk_packed(
+            params, self.cfg, tokens, starts, offsets, lengths, slots,
+            cache, pack_align=self.sc.phase.pack_align)
+        return sample_greedy(logits), cache
+
+    @torch.inference_mode()
+    def _decode_impl(self, params, tokens, cache, pos, slot_mask,
+                     all_greedy):
+        """One-token decode over the dense arena, all max_batch rows.  The
+        reference merges old and new arena over the whole arena with
+        ``where(slot_mask, new, old)``; here only the ``slot_mask`` rows
+        write their K/V, in place, so idle slots' rows are never touched
+        (and nothing of the arena's size is copied)."""
+        logits, cache, _ = forward(params, self.cfg, {"tokens": tokens},
+                                   phase="decode", cache=cache, pos=pos,
+                                   slot_mask=slot_mask)
+        return sample_greedy(logits), cache
+
     @torch.inference_mode()
     def _prefill_packed_paged_impl(self, params, tokens, starts, offsets,
                                    lengths, slots, cache, block_tables,
@@ -247,13 +304,18 @@ class ServingEngine:
         req.seed = sp.seed if sp.seed is not None else (
             (self.sc.seed * 2654435761 + req.req_id + 1) & 0x7FFFFFFF)
         req.prompt_len = int(req.prompt.shape[-1])
-        # capacity is a POOL property: a prompt fits iff the pool can hold
-        # it (+ 1 decode position) when running alone
-        if not self.pool.fits(req.prompt_len + 1):
+        if self.paged:
+            # capacity is a POOL property: a prompt fits iff the pool can
+            # hold it (+ 1 decode position) when running alone
+            if not self.pool.fits(req.prompt_len + 1):
+                raise ValueError(
+                    f"prompt of {req.prompt_len} tokens cannot fit the "
+                    f"paged pool ({self.pool.n_pages} pages x "
+                    f"{self.pool.page_size} = {self.pool.capacity} tokens)")
+        elif req.prompt_len >= self.sc.max_len:
             raise ValueError(
-                f"prompt of {req.prompt_len} tokens cannot fit the paged "
-                f"pool ({self.pool.n_pages} pages x {self.pool.page_size} = "
-                f"{self.pool.capacity} tokens)")
+                f"prompt of {req.prompt_len} tokens does not fit "
+                f"max_len={self.sc.max_len} (need >= 1 decode position)")
         req.t_submit = time.monotonic()
         self._next_id += 1
         self.queue.append(req)
@@ -304,7 +366,7 @@ class ServingEngine:
     def _preempt(self, req: Request) -> None:
         """Evict ``req`` from its slot: pages back to the pool, request back
         to WAITING (age-ordered), resumed by recompute."""
-        assert req.slot >= 0
+        assert self.paged and req.slot >= 0
         req.prefill_pos = 0
         self.recompute_preemptions += 1
         self.pool.release(req.slot)
@@ -382,9 +444,10 @@ class ServingEngine:
 
     def _finished(self, req: Request) -> bool:
         reason = self._stream_reason(req)
-        if reason is None and self.slot_pos[req.slot] >= \
-                self.pool.length_bound - 1:
-            reason = "length"           # pool position bound
+        if reason is None:
+            limit = self.pool.length_bound if self.paged else self.sc.max_len
+            if self.slot_pos[req.slot] >= limit - 1:
+                reason = "length"       # arena/pool position bound
         if reason is None:
             return False
         req.finish_reason = reason
@@ -395,7 +458,8 @@ class ServingEngine:
         req.t_done = time.monotonic()
         self.metrics.observe("serving_ttft_seconds", req.ttft)
         self.metrics.observe("serving_tpot_seconds", req.tpot)
-        self.pool.release(req.slot)
+        if self.paged:
+            self.pool.release(req.slot)
         self.slot_req[req.slot] = None
         self.slot_pos[req.slot] = -1
         self.done.append(req)
@@ -421,19 +485,37 @@ class ServingEngine:
                   if rid in reqs and take > 0]
         if not chunks:
             return
-        # claim the chunks' pages; the scheduler planned against the pool
-        # headroom, so this succeeds — trim defensively if a same-tick race
-        # says otherwise
-        claimed = []
-        for req, take in chunks:
-            take = min(take, self.pool.max_grow_tokens(req.slot))
-            if take <= 0 or not self.pool.grow(req.slot,
-                                               req.prefill_pos + take):
-                continue
-            claimed.append((req, take))
-        chunks = claimed
-        if not chunks:
+        if not self.chunked:
+            # atomic whole-prompt prefill, one program per request, its K/V
+            # spliced into the request's arena slot
+            self._prefill_progress = True
+            for req, take in chunks:
+                tokens = self._tensor(req.prompt[None])
+                self._note_compile(plan.prefill_group, "whole",
+                                   (req.prompt_len,), True)
+                toks, self.cache = self._program(plan.prefill_group,
+                                                 "whole")(
+                    self.params, tokens, req.slot, self.cache, True)
+                req.prefill_pos = req.prompt_len
+                self.prefill_tokens_executed += req.prompt_len
+                self.prefill_launches += 1
+                self.prefill_rows_executed += req.prompt_len
+                self._start_decoding(req, self._to_host(toks)[0])
             return
+        if self.paged:
+            # claim the chunks' pages; the scheduler planned against the
+            # pool headroom, so this succeeds — trim defensively if a
+            # same-tick race says otherwise
+            claimed = []
+            for req, take in chunks:
+                take = min(take, self.pool.max_grow_tokens(req.slot))
+                if take <= 0 or not self.pool.grow(req.slot,
+                                                   req.prefill_pos + take):
+                    continue
+                claimed.append((req, take))
+            chunks = claimed
+            if not chunks:
+                return
         self._prefill_progress = True
         toks = self._launch_packed_prefill(plan, chunks)
         self.prefill_tokens_executed += sum(take for _, take in chunks)
@@ -471,19 +553,27 @@ class ServingEngine:
             slots[i] = req.slot
         all_greedy = True
         self.prefill_rows_executed += T
-        self._note_compile(plan.prefill_group, "packed_paged", (T, Nb),
-                           all_greedy)
-        toks, self.cache = self._program(plan.prefill_group, "packed_paged")(
-            self.params, self._tensor(tokens), self._tensor(starts),
-            self._tensor(offs), self._tensor(lens), self._tensor(slots),
-            self.cache, self.pool.block_tables(), all_greedy)
+        args = (self.params, self._tensor(tokens), self._tensor(starts),
+                self._tensor(offs), self._tensor(lens), self._tensor(slots),
+                self.cache)
+        if self.paged:
+            self._note_compile(plan.prefill_group, "packed_paged", (T, Nb),
+                               all_greedy)
+            toks, self.cache = self._program(plan.prefill_group,
+                                             "packed_paged")(
+                *args, self.pool.block_tables(), all_greedy)
+        else:
+            self._note_compile(plan.prefill_group, "packed", (T, Nb),
+                               all_greedy)
+            toks, self.cache = self._program(plan.prefill_group, "packed")(
+                *args, all_greedy)
         return toks
 
     def _run_decode_tick(self, plan: TickPlan) -> None:
         reqs = self._by_id()
         active = [reqs[rid] for rid in plan.decode_reqs
                   if rid in reqs and reqs[rid].state == RequestState.DECODING]
-        if active:
+        if self.paged and active:
             # each decode write may cross into a fresh page; grow
             # oldest-first and, when the pool is out, PREEMPT the youngest
             # page holder (it re-queues for recompute)
@@ -496,25 +586,47 @@ class ServingEngine:
             active = survivors
         if not active:
             return
-        # the pool addresses KV through the CALL's block tables, so the
-        # decode batch compacts: active slots map to rows 0..len(active) and
-        # the row count rounds up the pow2 ladder
-        nb = _bucket(len(active), self.sc.max_batch)
-        tokens = np.zeros((nb, 1), np.int32)
-        pos = np.zeros((nb,), np.int32)
-        for i, r in enumerate(active):
-            tokens[i, 0] = r.generated[-1]
-            pos[i] = self.slot_pos[r.slot]
         all_greedy = True
-        self._note_compile(plan.decode_group, "decode_paged", (nb,),
-                           all_greedy)
-        # pad rows carry all-sentinel block-table rows: their writes drop
-        toks, self.cache = self._program(plan.decode_group, "decode_paged")(
-            self.params, self._tensor(tokens), self.cache, self._tensor(pos),
-            self.pool.block_tables(rows=[r.slot for r in active], n=nb),
-            all_greedy)
+        if self.paged:
+            # the pool addresses KV through the CALL's block tables, so the
+            # decode batch compacts: active slots map to rows
+            # 0..len(active) and the row count rounds up the pow2 ladder
+            nb = _bucket(len(active), self.sc.max_batch)
+            tokens = np.zeros((nb, 1), np.int32)
+            pos = np.zeros((nb,), np.int32)
+            for i, r in enumerate(active):
+                tokens[i, 0] = r.generated[-1]
+                pos[i] = self.slot_pos[r.slot]
+            self._note_compile(plan.decode_group, "decode_paged", (nb,),
+                               all_greedy)
+            # pad rows carry all-sentinel block-table rows: their writes
+            # drop
+            toks, self.cache = self._program(plan.decode_group,
+                                             "decode_paged")(
+                self.params, self._tensor(tokens), self.cache,
+                self._tensor(pos),
+                self.pool.block_tables(rows=[r.slot for r in active], n=nb),
+                all_greedy)
+            emitted = list(enumerate(active))
+        else:
+            # the dense arena is slot-indexed, so the batch stays [B], with
+            # per-slot positions (idle slots at 0) and only active slots
+            # writing their K/V
+            B = self.sc.max_batch
+            tokens = np.zeros((B, 1), np.int32)
+            mask = np.zeros((B,), bool)
+            for r in active:
+                tokens[r.slot, 0] = r.generated[-1]
+                mask[r.slot] = True
+            pos = np.where(self.slot_pos >= 0, self.slot_pos,
+                           0).astype(np.int32)
+            self._note_compile(plan.decode_group, "decode", (B,), all_greedy)
+            toks, self.cache = self._program(plan.decode_group, "decode")(
+                self.params, self._tensor(tokens), self.cache,
+                self._tensor(pos), self._tensor(mask), all_greedy)
+            emitted = [(r.slot, r) for r in active]
         sampled = self._to_host(toks)               # one transfer per tick
-        for row, r in enumerate(active):
+        for row, r in emitted:
             self._append_token(r, sampled[row])
             self.decode_tokens_emitted += 1
             self.decode_slot_ticks += 1
@@ -544,23 +656,26 @@ class ServingEngine:
             key=lambda e: e[0])
         decoding = [r.req_id for r in self.slot_req
                     if r is not None and r.state == RequestState.DECODING]
-        # token-level admission: prefill work is planned against the pool's
-        # free pages, with this tick's decode growth reserved
-        headroom = self.pool.headroom_pages(
-            [self.pool.len_of(r.slot) for r in self.slot_req
-             if r is not None and r.state == RequestState.DECODING],
-            growth=1)
-        plan = self.scheduler.plan_tick(
-            prefilling, decoding, free_pages=headroom,
-            page_size=self.sc.page_size,
-            capacity=self.pool.widest_capacity(), spec_k=0)
+        if self.paged:
+            # token-level admission: prefill work is planned against the
+            # pool's free pages, with this tick's decode growth reserved
+            headroom = self.pool.headroom_pages(
+                [self.pool.len_of(r.slot) for r in self.slot_req
+                 if r is not None and r.state == RequestState.DECODING],
+                growth=1)
+            plan = self.scheduler.plan_tick(
+                prefilling, decoding, free_pages=headroom,
+                page_size=self.sc.page_size,
+                capacity=self.pool.widest_capacity(), spec_k=0)
+        else:
+            plan = self.scheduler.plan_tick(prefilling, decoding, spec_k=0)
         if plan.prefill_chunks:
             self._run_prefill_tick(plan)
         if plan.decode_reqs:
             self._run_decode_tick(plan)
-        if not plan.decode_reqs and not self._prefill_progress:
+        if self.paged and not plan.decode_reqs and not self._prefill_progress:
             self._break_prefill_stall()
-        resident = self.pool.resident_bytes()
+        resident = self.pool.resident_bytes() if self.paged else 0
         self.kv_resident_peak = max(self.kv_resident_peak, resident)
         cur = self.metrics.values(self._TICK_DELTA_KEYS)
         delta = {k: cur[k] - self._tick_delta_base[k] for k in cur}
@@ -655,11 +770,16 @@ class ServingEngine:
         return self._n_ticks
 
     def kv_bytes(self) -> Dict[str, int]:
-        """KV memory accounting: reserved pool bytes, bytes backing live
-        tokens now, and the high-water mark across ticks."""
-        return {"reserved": self.pool.total_bytes(),
-                "resident": self.pool.resident_bytes(),
-                "peak_resident": self.kv_resident_peak}
+        """KV memory accounting: reserved bytes, bytes backing live tokens
+        now, and the high-water mark across ticks (the dense arena pins its
+        whole footprint, so all three are its size)."""
+        if self.paged:
+            return {"reserved": self.pool.total_bytes(),
+                    "resident": self.pool.resident_bytes(),
+                    "peak_resident": self.kv_resident_peak}
+        return {"reserved": self._dense_kv_bytes,
+                "resident": self._dense_kv_bytes,
+                "peak_resident": self._dense_kv_bytes}
 
     def phase_occupancy(self) -> Dict[str, float]:
         """Fractions of ticks running prefill / decode / both."""

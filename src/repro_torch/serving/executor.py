@@ -28,9 +28,11 @@ from repro_torch.serving.metrics import MetricsRegistry, counter_attr
 class Executor:
     """Base executor: program table + compile accounting, no placement."""
 
-    # the phase-program kinds this slice serves: the paged flash-decode
-    # step and the packed-stream prefill into the paged pool
-    KINDS = frozenset({"decode_paged", "packed_paged"})
+    # the phase-program kinds the port serves: one-token decode and the
+    # packed-stream prefill over the paged pool (``*_paged``) or the dense
+    # arena, and the dense arena's whole-prompt prefill
+    KINDS = frozenset({"whole", "decode", "packed", "decode_paged",
+                       "packed_paged"})
 
     # lifetime counter in the metrics registry (the engine shares its own,
     # so counts()/snapshot() and this attribute read the same cell)

@@ -50,3 +50,12 @@ def test_guard_covers_the_quantized_path():
     for mod in ("serving/quantized_weights.py", "serving/quantized_cache.py",
                 "kernels/gemv_cid.py"):
         assert f"src/repro_torch/{mod}" in names
+
+
+def test_guard_covers_the_dense_path():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in ("kernels/flash_attention.py", "kernels/decode_attention.py",
+                "kernels/ref.py", "models/attention.py",
+                "models/transformer.py", "serving/engine.py",
+                "launch/serve.py"):
+        assert f"src/repro_torch/{mod}" in names

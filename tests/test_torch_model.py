@@ -164,6 +164,6 @@ def test_prefill_and_decode_match_reference(name):
 def test_forward_refuses_unported_phases():
     _, cfg = _cfgs("llama2-7b")
     tp = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 12"):
         T.forward(tp, cfg, {"tokens": torch.zeros((1, 4), dtype=torch.long)},
-                  phase="prefill")
+                  phase="train")

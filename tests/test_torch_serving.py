@@ -165,7 +165,8 @@ def _tiny():
 
 
 @pytest.mark.parametrize("option", [
-    dict(paged=False), dict(paged=True, packed_prefill=False),
+    dict(paged=False, packed_prefill=False),
+    dict(paged=True, packed_prefill=False),
     dict(paged=True, prefix_cache=True),
     dict(paged=True, speculative=SpecConfig(k=2)),
     dict(paged=True, host_spill_pages=4),

@@ -114,6 +114,17 @@ def test_serve_cli_on_cpu(capsys):
     assert "requests=3 tokens=15" in out
     assert "paged_decode_attention=0 packed_prefill_attention=0" in out
     assert np.isfinite(float(out.split("TTFT p50=")[1].split("ms")[0]))
+    # the dense arena with whole-prompt prefill, above the 2048-token
+    # threshold of the flash-attention route
+    assert serve.main(["--arch", "qwen3-8b", "--reduced", "--device", "cpu",
+                       "--requests", "2", "--prompt-len", "2100",
+                       "--max-new", "4", "--no-paged", "--max-len", "2176",
+                       "--prefill-chunk", "0"]) == 0
+    out = capsys.readouterr().out
+    assert "chunk=0 requests=2 tokens=8" in out
+    assert "kv=dense[4x2176]" in out
+    assert "flash_attention=0 decode_attention=0" in out
+    assert np.isfinite(float(out.split("TTFT p50=")[1].split("ms")[0]))
 
 
 def test_gemv_bound_counts_weight_bytes(monkeypatch):
@@ -183,3 +194,77 @@ def test_quantized_bf16_tolerance_fails_a_dropped_tile(monkeypatch, name):
     tol, A = chip_smoke.tolerance(torch, name, args, {}, "bfloat16")
     assert chip_smoke.close(torch, f64, want, "bfloat16", A, tol)[1]
     assert not chip_smoke.close(torch, got, want, "bfloat16", A, tol)[1]
+
+
+def test_flash_bound_counts_visible_pairs(monkeypatch):
+    """Operations: 4 B H D per query-key pair the causal (and windowed)
+    mask lets through; bytes: q, k and v read and the output written."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    B, H, Hkv, D, T = 2, 8, 2, 16, 2000
+    for window, pairs in ((0, T * (T + 1) // 2),
+                          (300, 300 * 301 // 2 + (T - 300) * 300)):
+        args, kw = chip_smoke.flash_inputs(torch, H, Hkv, D, B, T, window,
+                                           torch.float32, seed=0)
+        flops = 4.0 * B * H * D * pairs
+        nbytes = (2 * B * H + 2 * B * Hkv) * T * D * 4
+        t_ops = flops / chip_smoke.PEAK_FLOPS["float32"] * 1e3
+        assert t_ops > nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3
+        ms, by = chip_smoke.flash_cost(args, kw)
+        assert by == "operations" and ms == pytest.approx(t_ops)
+
+
+def test_dense_decode_bound_counts_valid_rows(monkeypatch):
+    """Bytes: q in, out back, K and V of every position before its row's
+    length, and the lengths; rows past a length hold NaN that the plain
+    version never lets through."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    H, Hkv, D, S = 8, 2, 16, 300
+    q, k, v, lengths = chip_smoke.dense_decode_inputs(torch, H, Hkv, D, 4, S,
+                                                      torch.float32, seed=0)
+    assert lengths.tolist() == [1, 2049, S, 777]
+    tokens = sum(min(n, S) for n in lengths.tolist())
+    nbytes = 2 * 4 * H * D * 4 + 2 * tokens * Hkv * D * 4 + 4 * 4
+    ms, by = chip_smoke.dense_decode_cost(q, k, v, lengths)
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    from repro_torch.kernels import ref
+    assert torch.isfinite(ref.decode_attention_ref(q, k, v, lengths)).all()
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention"])
+def test_dense_bf16_tolerance_fails_a_dropped_tile(monkeypatch, name):
+    """The bf16 bound of B5 and B6 passes the plain version run with
+    unrounded (f32) softmax weights, and fails a result that skipped one
+    32-key tile of a 2048-token prompt (B5: keys 64..95, hidden from every
+    later query) or one 128-token split of the dense walk (B6: positions
+    1024..1151, inside the rows of lengths 2049 and 4160)."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    from repro_torch.kernels import ref
+    from repro_torch.models.attention import _dense_attention
+    if name == "flash_attention":
+        plain = ref.flash_attention_ref
+        args, kw = chip_smoke.flash_inputs(torch, 8, 2, 128, 1, 2048, 0,
+                                           torch.bfloat16, seed=3)
+        q, k, v = (x.transpose(1, 2) for x in args)
+        pos = torch.arange(2048)[None]
+        hole = pos.clone()
+        hole[:, 64:96] = 1 << 20                 # after every query
+        got = _dense_attention(q, k, v, pos, hole, 0, 0.0).transpose(1, 2)
+    else:
+        plain, kw = ref.decode_attention_ref, {}
+        args = chip_smoke.dense_decode_inputs(torch, 32, 8, 128, 4, 4160,
+                                              torch.bfloat16, seed=3)
+        q, k, v, lengths = args
+        B, S, Hkv, D = k.shape
+        P = 32                                   # the arena as 32-token pages
+        bt = torch.arange(B * S // P, dtype=torch.int32).reshape(B, S // P)
+        bt[:, 1024 // P:1152 // P] = B * S // P  # sentinel: never read
+        got = ref.paged_decode_attention_ref(
+            q, k.reshape(-1, P, Hkv, D), v.reshape(-1, P, Hkv, D), bt,
+            lengths)
+    want = plain(*args, **kw)
+    abs_ctx = chip_smoke.abs_context(plain, name, args, kw)
+    f32 = [x.float() if x.is_floating_point() else x for x in args]
+    f32_p = plain(*f32, **kw).to(torch.bfloat16)
+    assert chip_smoke.close(torch, f32_p, want, "bfloat16", abs_ctx)[1]
+    assert not chip_smoke.close(torch, got, want, "bfloat16", abs_ctx)[1]
