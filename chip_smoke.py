@@ -21,9 +21,14 @@ Phases, one JSON line each:
    attention (B5) at T = 2560 and 4000 (a ragged last tile), window 0 and
    1024, batch 1 and (T = 2560) 2; dense decode (B6) over a 4160-position
    arena at batch 1 and 4 with lengths 1, ragged and 4160 and NaN on every
-   row at or past a length; and packed prefill over the dense arena's view
-   (one 8192-token page per slot, block table = slot, unwritten rows NaN).
-   Tolerances: f32 |err| <= 1e-4; bf16 (see ``tolerance``) for the float
+   row at or past a length; packed prefill over the dense arena's view
+   (one 8192-token page per slot, block table = slot, unwritten rows NaN);
+   and the SSD chunk kernel (B7) at mamba2 geometry (H=80, P=64, N=128)
+   for 32 chunks of 256, one of 200 and one of 24, x/B/C in f32 and bf16
+   (dt and A f32, made as ``ssm_prefill`` makes them).
+   Tolerances: B7, whatever the input dtype, the per-element worst-case
+   bound of f32 arithmetic of ``ssd_tolerance``; otherwise
+   f32 |err| <= 1e-4; bf16 (see ``tolerance``) for the float
    attention kernels (B1, B2, B5, B6), per
    element, |err| <= 2^-7 A + 2^-6 |ref|, where A is the plain version's
    f32 result with every V row replaced by its absolute value (sum_i p_i
@@ -40,12 +45,14 @@ Phases, one JSON line each:
    is the larger of the bytes the call must move over 3.35 TB/s and its
    operations over the peak rate of its type (989 TFLOP/s bf16, 67 TFLOP/s
    f32): B5 by its 4 B H D (visible query-key pairs) operations, B6 by the
-   K/V bytes of its valid rows; ``library_ms`` times one library call on
+   K/V bytes of its valid rows, B7 by the operations of the causal half
+   (``ssd_cost``); ``library_ms`` times one library call on
    the same inputs — for attention ``scaled_dot_product_attention`` on the
    pre-gathered dense K/V (dequantized beforehand for int4; repeated to the
    H query heads beforehand) with a boolean mask (``is_causal`` for B5
    without a window), for the GEMV ``torch.matmul`` on the weight
-   dequantized beforehand — a yardstick only, never used by the port.
+   dequantized beforehand, for B7 three batched ``torch.matmul`` calls over
+   a materialised L — a yardstick only, never used by the port.
 4. ``serve``   — ``ServingEngine`` on qwen3-8b at full width and all 36
    layers in bf16 (random weights from a seeded ``torch.Generator`` on the
    card): paged pool (page 16, 1024 pages), max_batch 4, default
@@ -84,13 +91,24 @@ Phases, one JSON line each:
    decoding) and B2 (the first packed launch) are re-checked at those
    inputs as in ``serve``.  TTFT per prompt length, TPOT, decode tokens/s,
    peak memory and a ``profile`` line (``"of": "serve_dense"``).
-7. ``preempt`` — the same model cut to 4 layers, with a pool small enough
+7. ``serve_ssm`` — mamba2-2.7b at full width and all 64 layers in bf16
+   (random seeded weights) on the dense arena (max_len 8448, max_batch 4)
+   with whole-prompt prefill: after the 24-token warm-up, prompts of 8192,
+   4096, 2048 and 200 tokens, 64 new tokens each, two rounds.  Each round
+   B7 must launch 64 x 4 times (every prompt, every layer) and every other
+   kernel never; B7 is re-checked at the 8192-token prompt's first-layer
+   inputs (bf16, and cast to f32), and the layout moves around it timed
+   there.  TTFT per prompt length, TPOT, decode tokens/s, weight and state
+   bytes, peak memory, a ``profile`` line for a round and one for a
+   prefill-only pass with B7's share of its device time.
+8. ``preempt`` — the same model cut to 4 layers, with a pool small enough
    to force preemptions; every request must finish.
-8. ``parity``  — reduced llama2-7b and qwen3-8b in f32, one engine on
+9. ``parity``  — reduced llama2-7b and qwen3-8b in f32, one engine on
    ``cuda`` (kernels) and one on ``cpu`` (plain versions), same weights,
    f32 KV (with and without a forced preemption) and int8 KV on the paged
    pool, and the dense arena with whole-prompt prefill (a 2100-token
-   prompt among short ones) and with packed chunks: equal tick logs, and
+   prompt among short ones) and with packed chunks; reduced mamba2-2.7b on
+   the dense arena with whole-prompt prefill: equal tick logs, and
    equal greedy streams up to the first position where the CPU run's own
    top-2 logit margin, recorded as it served, is at most 1e-3.
 
@@ -100,7 +118,7 @@ on the card nothing falls back to it.
 Then one ``{"kernels": [...]}`` line (launches from the serve phase whose
 main path runs the kernel — ``serve_quantized`` for the GEMV and the int4
 decode, whose times sum one layer's seven GEMV calls, ``serve_dense`` for
-B5 and B6 — times at its inputs
+B5 and B6, ``serve_ssm`` for B7 — times at its inputs
 in bf16, ``max_abs_err`` from the f32 check at those inputs and
 ``max_abs_err_bf16`` from the bf16 one), the ``nvidia-smi`` line, and
 as the last line
@@ -136,6 +154,8 @@ ROUNDS = 3                # serve rounds of the same four requests
 ROUNDS_QUANTIZED = 2      # serve_quantized rounds of them
 ROUNDS_DENSE = 2          # serve_dense whole-prompt rounds
 DENSE_MAX_LEN = 8192      # serve_dense arena positions per slot
+ROUNDS_SSM = 2            # serve_ssm rounds
+SSM_MAX_LEN = 8448        # serve_ssm arena positions per slot (8192 + 256)
 DEV = "cuda"              # the card; the input builders allocate here
 FAILED = []               # kernel checks that disagreed (raised per phase)
 
@@ -519,7 +539,9 @@ def tolerance(torch, name, args, kw, dt):
     most half an ulp, 2^-8 |ref| — so |err| <= 2^-7 |ref| + (2n + 2) 2^-24 A,
     with n = K for B3 (A = |x| @ |w| times the scale) and n = the longest
     length for B4 (A = sum_i p_i |v_i|). B4 keeps p in f32, so no p-rounding
-    term enters."""
+    term enters. B7, f32 and bf16: ``ssd_tolerance``."""
+    if name == "ssd_chunk":
+        return ssd_tolerance(torch, *args)
     if dt == "float32" or name in V_ARGS:
         if not TOL[dt]["p_abs"]:
             return TOL[dt], None
@@ -667,6 +689,102 @@ def arena_prefill_inputs(torch, H, Hkv, D, dtype, seed, R=DENSE_MAX_LEN):
 
 
 # ---------------------------------------------------------------------------
+# Mamba-2 intra-chunk SSD (B7)
+# ---------------------------------------------------------------------------
+
+SSD_GEOM = dict(H=80, P=64, N=128)   # mamba2-2.7b: 80 heads of 64, state 128
+
+
+def ssd_inputs(torch, nc, H, Q, P, N, dtype, seed):
+    """x [nc,H,Q,P] and B/C [nc,Q,N] standard normal in ``dtype``; A and dt
+    f32, made as ``ssm_prefill`` makes them from the init's A_log and
+    dt_bias: A = -exp(log(linspace(1, 16, H))), dt = softplus(u + dt_bias)
+    with u standard normal and dt_bias = softplus^-1 of a log-uniform draw
+    in [1e-3, 1e-1]."""
+    import math
+    import torch.nn.functional as F
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    f32 = dict(dtype=torch.float32, device=DEV)
+    x = torch.randn((nc, H, Q, P), generator=g, **f32)
+    dt0 = torch.exp(math.log(1e-3) + torch.rand((H,), generator=g, **f32)
+                    * (math.log(1e-1) - math.log(1e-3)))
+    dt = F.softplus(torch.randn((nc, H, Q), generator=g, **f32)
+                    + torch.log(torch.expm1(dt0))[None, :, None])
+    A = -torch.exp(torch.log(torch.linspace(1.0, 16.0, H, **f32)))
+    B = torch.randn((nc, Q, N), generator=g, **f32)
+    C = torch.randn((nc, Q, N), generator=g, **f32)
+    return x.to(dtype), dt, A, B.to(dtype), C.to(dtype)
+
+
+def ssd_cost(x, dt, A, Bm, Cm):
+    """Bytes: every input read once, y and the states written once (f32).
+    Operations: the causal half the function needs — per chunk C B^T over
+    the Q(Q+1)/2 pairs j <= i (2 N each); per chunk and head G (dt x) over
+    those pairs (2 P each) and the state, 2 Q N P."""
+    nc, H, Q, P = x.shape
+    N = Bm.shape[-1]
+    el = x.element_size()
+    nbytes = ((x.numel() + Bm.numel() + Cm.numel()) * el
+              + (dt.numel() + A.numel()) * 4 + 4 * nc * H * (Q * P + N * P))
+    pairs = Q * (Q + 1) // 2
+    flops = nc * (2.0 * pairs * N + H * (2.0 * pairs * P + 2.0 * Q * N * P))
+    return bound(nbytes, flops, dtype_name(x))
+
+
+def ssd_library(torch, x, dt, A, Bm, Cm):
+    """The same function as three batched ``torch.matmul`` calls over a
+    materialised L (made beforehand, with dt x and the decay weights):
+    C B^T, (C B^T o L)(dt x) and B^T (decay dt x) — a yardstick only."""
+    Q = x.shape[2]
+    cs = torch.cumsum(dt * A[None, :, None], dim=-1)
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    L = torch.exp(torch.where(tri, cs[..., :, None] - cs[..., None, :],
+                              -float("inf")))
+    xb = x.float() * dt[..., None]
+    xw = xb * torch.exp(cs[..., -1:] - cs)[..., None]
+    Bf, Cf = Bm.float(), Cm.float()
+    Bt = Bf.transpose(-1, -2)[:, None]
+
+    def run():
+        cb = torch.matmul(Cf, Bf.transpose(-1, -2))
+        return torch.matmul(cb[:, None] * L, xb), torch.matmul(Bt, xw)
+    return run
+
+
+def ssd_tolerance(torch, x, dt, A, Bm, Cm):
+    """(tolerance, bound) of B7, per element of y and the states (flattened
+    together): |err| <= e (2Q + 2N + 16 + 4 Q S) A, e = 2^-24, where A is the
+    plain version on |x|, |B| and |C| (the sum of the magnitudes of every
+    term) and S = sum_j |dt_j A_h| over the chunk (= |cs_last|).  Both sides
+    compute in f32 from the same values (bf16 inputs widen exactly).  Each
+    side's sums over at most Q (j) and N (C.B) terms are off by at most
+    (Q + N) e times their magnitudes; the products and the exp round about 8
+    times per term; each cumulative sum cs_k is off by at most k e S, so
+    cs_i - cs_j by at most 2 Q e S a side and exp(cs_i - cs_j) relatively
+    by as much: 4 Q e S between the two sides.  The bound is that worst
+    case, so a result missing one 64-row tile of one head block fails it
+    (``tests/test_torch_smoke.py``)."""
+    from repro_torch.kernels import ref
+    Q, N = x.shape[2], Bm.shape[-1]
+    e = 2.0 ** -24
+    S = (dt * A.abs()[None, :, None]).sum(-1)                  # [nc,H]
+    fac = e * (2 * Q + 2 * N + 16 + 4 * Q * S)[..., None, None]
+    ay, ast = ref.ssd_chunk_ref(x.float().abs(), dt, A, Bm.float().abs(),
+                                Cm.float().abs())
+    return (dict(atol=0.0, rtol=0.0, p_abs=1.0),
+            torch.cat([(fac * ay).flatten(), (fac * ast).flatten()]))
+
+
+def flat(out):
+    """A kernel's result as one tensor: B7's (y, states) flattened and
+    concatenated, any other as it is."""
+    if isinstance(out, tuple):
+        import torch
+        return torch.cat([t.flatten() for t in out])
+    return out
+
+
+# ---------------------------------------------------------------------------
 # one kernel check: kernel vs plain version, times, bound
 # ---------------------------------------------------------------------------
 
@@ -678,6 +796,7 @@ def ref_of(name):
             "paged_decode_attention_q4": ref.paged_decode_attention_q4_ref,
             "flash_attention": ref.flash_attention_ref,
             "decode_attention": ref.decode_attention_ref,
+            "ssd_chunk": ref.ssd_chunk_ref,
             }[name]
 
 
@@ -692,11 +811,15 @@ def cost_and_library(torch, name, args, kw):
         return flash_cost(args, kw), flash_library(torch, args, kw)
     if name == "decode_attention":
         return dense_decode_cost(*args), dense_decode_library(torch, *args)
+    if name == "ssd_chunk":
+        return ssd_cost(*args), ssd_library(torch, *args)
     return q4_cost(*args), q4_library(torch, *args)
 
 
 LIBRARY = {"gemv": "torch.matmul on the weight dequantized to x's dtype "
                    "beforehand (yardstick only)",
+           "ssd_chunk": "three batched torch.matmul calls over L, dt x and "
+                        "the decay weights made beforehand (yardstick only)",
            "paged_decode_attention_q4": "scaled_dot_product_attention on "
                                         "pre-gathered K/V dequantized to "
                                         "q's dtype (yardstick only)"}
@@ -706,8 +829,8 @@ def check_kernel(torch, timer, name, args, kw, label, timed=True):
     the CUDA-event times of kernel, plain version and library call."""
     kernel, plain = kernel_functions()[name], ref_of(name)
     dt = dtype_name(args[0])
-    got = kernel(*args, **kw)
-    want = plain(*args, **kw)
+    got = flat(kernel(*args, **kw))
+    want = flat(plain(*args, **kw))
     torch.cuda.synchronize()
     tol, abs_ctx = tolerance(torch, name, args, kw, dt)
     err, ok, worst = close(torch, got, want, dt, abs_ctx, tol)
@@ -779,6 +902,14 @@ def kernel_phase(torch, timer):
             args, kw = arena_prefill_inputs(torch, H, Hkv, D, dtype, seed)
             check_kernel(torch, timer, "packed_prefill_attention", args, kw,
                          f"{model} dense arena view, P=R={DENSE_MAX_LEN}")
+        # B7 at mamba2 geometry: an 8192-token prompt's 32 chunks of 256, a
+        # 200-token prompt's one chunk and the 24-token warm-up's
+        for nc, Q in ((32, 256), (1, 200), (1, 24)):
+            seed += 1
+            args = ssd_inputs(torch, nc, Q=Q, dtype=dtype, seed=seed,
+                              **SSD_GEOM)
+            check_kernel(torch, timer, "ssd_chunk", args, {},
+                         f"mamba2-2.7b nc={nc} Q={Q}")
     require_all_agree("kernel")
 
 
@@ -799,7 +930,8 @@ class MainPathProbe:
     every logit tensor for NaN (one device flag, read once), counts
     prefill and decode steps and every call of a plain version, and keeps
     the inputs the main path gave each kernel for the checks after the
-    run — the first packed-prefill and flash-attention launches, of the
+    run — the first packed-prefill, flash-attention and SSD chunk
+    launches, of the
     last decode step the first layer's paged decode attention launch and
     its ``GEMV_PER_LAYER`` GEMV calls (wq, wk, wv, wo, gate, up, down), and
     of the first decode step with the most requests decoding the first
@@ -826,7 +958,8 @@ class MainPathProbe:
                        (eng, "forward_chunk_packed", eng.forward_chunk_packed),
                        (eng, "prefill_into_arena", eng.prefill_into_arena),
                        (ops, "_da", ops._da), (ops, "_fa", ops._fa),
-                       (ops, "_gemv", ops._gemv), (ops, "_ref", ops._ref)]
+                       (ops, "_gemv", ops._gemv), (ops, "_ssd", ops._ssd),
+                       (ops, "_ref", ops._ref)]
 
         def model(fn, step):
             def wrapped(*a, **k):
@@ -892,6 +1025,8 @@ class MainPathProbe:
                                    "flash_attention", "first"))
         ops._gemv = types.SimpleNamespace(gemv=kernel(
             ops._gemv.gemv, "gemv", "last", self.GEMV_PER_LAYER))
+        ops._ssd = types.SimpleNamespace(ssd_chunk=kernel(
+            ops._ssd.ssd_chunk, "ssd_chunk", "first"))
         ops._ref = types.SimpleNamespace(**{
             name: plain(getattr(ops._ref, name)) for name in dir(ops._ref)
             if name.endswith("_ref")})
@@ -907,12 +1042,14 @@ def kernel_functions():
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemv_cid as gc
+    from repro_torch.kernels import ssd_scan as ss
     return {"paged_decode_attention": da.paged_decode_attention,
             "packed_prefill_attention": fa.packed_prefill_attention,
             "gemv": gc.gemv,
             "paged_decode_attention_q4": da.paged_decode_attention_q4,
             "flash_attention": fa.flash_attention,
-            "decode_attention": da.decode_attention}
+            "decode_attention": da.decode_attention,
+            "ssd_chunk": ss.ssd_chunk}
 
 
 def make_engine(torch, cfg, params, device, **sc_kw):
@@ -999,7 +1136,8 @@ ON_PATH = {"serve": ("paged_decode_attention", "packed_prefill_attention"),
                                "packed_prefill_attention"),
            "serve_dense": ("flash_attention", "decode_attention"),
            "serve_dense_packed": ("packed_prefill_attention",
-                                  "decode_attention")}
+                                  "decode_attention"),
+           "serve_ssm": ("ssd_chunk",)}
 
 
 def free_device_memory(torch):
@@ -1207,6 +1345,138 @@ def serve_dense_phase(torch, timer):
     return main
 
 
+def ssm_prompts(cfg):
+    """A 24-token warm-up prompt, then the four served prompts of the
+    mamba2 phase: lengths the reference takes (a multiple of its 256-token
+    SSD chunk, or at most one chunk)."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    return [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+            for n in (24, 8192, 4096, 2048, 200)]
+
+
+def serve_ssm_phase(torch, timer):
+    """mamba2-2.7b at full width (64 layers, d_model 2560, bf16) on the
+    dense arena with whole-prompt prefill: every prompt's every layer runs
+    the SSD chunk kernel (B7) once, decode is the recurrent update in
+    PyTorch.  B7 is re-checked at the 8192-token prompt's first-layer
+    inputs; its layout moves are timed at those inputs; its share of the
+    prefill's device time is read from a profiled prefill-only pass."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(get_config("mamba2-2.7b"), dtype="bfloat16")
+    L = cfg.n_layers
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    torch.cuda.synchronize()
+    t_init = time.monotonic() - t0
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in _leaves(params)) / 1e9
+    prompts = ssm_prompts(cfg)
+    from repro_torch.serving.scheduler import PhaseAwareConfig
+    eng = make_engine(torch, cfg, params, DEV, paged=False, max_batch=4,
+                      max_len=SSM_MAX_LEN,
+                      phase=PhaseAwareConfig(prefill_chunk=0))
+    t0 = time.monotonic()
+    rounds, probe, launches, log = serve_rounds(torch, eng, prompts,
+                                                ROUNDS_SSM, L)
+    n_prompts = len(prompts) - 1
+    emit("serve_ssm", **serve_row(
+        torch, cfg, prompts, rounds, probe, launches, log,
+        arena=f"dense [4 x {SSM_MAX_LEN}]", prefill_chunk=0,
+        weights_gb=weights_gb,
+        state_reserved_gb=eng.kv_bytes()["reserved"] / 1e9, init_s=t_init,
+        wall_s=time.monotonic() - t0))
+    if probe.steps["prefill"] != n_prompts * ROUNDS_SSM:
+        raise AssertionError(f"serve_ssm: {probe.steps['prefill']} prefill "
+                             "steps, expected one per prompt and round")
+    expect = {name: 0 for name in kernel_functions()}
+    expect["ssd_chunk"] = L * n_prompts * ROUNDS_SSM
+    require_launches("serve_ssm", launches, expect)
+    args, kw = probe.inputs["ssd_chunk"][0]
+    T0 = len(prompts[1])
+    Q = min(cfg.ssm.chunk_size, T0)
+    if tuple(args[0].shape[:3]) != (T0 // Q, cfg.ssm.n_heads(cfg.d_model), Q):
+        raise AssertionError(f"serve_ssm: the first B7 launch had x "
+                             f"{tuple(args[0].shape)}, not the {T0}-token "
+                             "prompt's first layer")
+    main = {"ssd_chunk": recheck(torch, timer, "ssd_chunk", args, kw,
+                                 launches["ssd_chunk"],
+                                 f"serve_ssm main path, {T0}-token prompt, "
+                                 "layer 0")}
+    emit("serve_ssm_layout", of=f"B7 at the {T0}-token prompt's layer 0",
+         layout_ms=ssd_layout_ms(torch, timer, *args),
+         kernel_ms=main["ssd_chunk"]["kernel_ms"])
+    require_all_agree("serve_ssm")
+    profile_phase(torch, eng, prompts[1:],
+                  median([r["wall_s"] for r in rounds]), of="serve_ssm")
+    prefill_share(torch, eng, prompts[1:])
+    del eng, probe, params, args
+    free_device_memory(torch)
+    return main
+
+
+def ssd_layout_ms(torch, timer, x, dt, A, Bm, Cm):
+    """Device time of the layout moves around one B7 call at these inputs:
+    x [B,T,H,P] -> [B*nc,H,Q,P], dt likewise, and y back from [B*nc,H,Q,P]
+    to [B,T,H,P] order (``models/ssm.ssd_chunked``)."""
+    nc, H, Q, P = x.shape
+    x_in = x.transpose(1, 2).reshape(1, nc * Q, H, P).contiguous()
+    dt_in = dt.transpose(1, 2).reshape(1, nc * Q, H).contiguous()
+    y = torch.empty((nc, H, Q, P), dtype=torch.float32, device=x.device)
+
+    def moves():
+        x_in.reshape(nc, Q, H, P).transpose(1, 2).contiguous()
+        dt_in.reshape(nc, Q, H).transpose(1, 2).contiguous()
+        y.permute(0, 2, 1, 3).contiguous()
+    return timer(moves)
+
+
+def prefill_share(torch, eng, prompts):
+    """B7's share of a prefill's device time: the four prompts once more,
+    one new token each (so no decode step runs), under ``torch.profiler``;
+    B7's two passes (``ssd_y``, ``ssd_states``) against every kernel's and
+    copy's device time.  Its launches are outside the counted run."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.sampling import SamplingParams
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.generate(prompts, SamplingParams(max_new_tokens=1))
+        torch.cuda.synchronize()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    rows = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and device_us(e) > 0]
+    busy = sum(device_us(e) for e in rows) / 1e3
+    b7 = sum(device_us(e) for e in rows
+             if "ssd_y" in e.key or "ssd_states" in e.key) / 1e3
+    top = sorted(rows, key=device_us, reverse=True)[:8]
+    emit("profile", of="serve_ssm prefill", prompts=[len(p) for p in prompts],
+         max_new_tokens=1,
+         device_busy_ms=busy if rows else "not measured",
+         ssd_chunk_ms=b7 if rows else "not measured",
+         ssd_chunk_share=b7 / busy if rows and busy else "not measured",
+         top_kernels=[dict(name=e.key[:80], calls=e.count,
+                           device_ms=device_us(e) / 1e3) for e in top])
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def profile_phase(torch, eng, prompts, round_wall_s, of="serve"):
     """Where a serve round's time goes: one more round of the same four
     prompts and 64 new tokens under ``torch.profiler``, device activity
@@ -1341,7 +1611,9 @@ def parity_phase(torch):
     """Reduced llama2-7b and qwen3-8b: on the paged pool with f32 KV (a
     roomy pool and one that forces preemption) and int8 KV, and on the
     dense arena with whole-prompt prefill (a 2100-token prompt, above the
-    flash-attention threshold, among short ones) and with packed chunks —
+    flash-attention threshold, among short ones) and with packed chunks;
+    reduced mamba2-2.7b on the dense arena with whole-prompt prefill
+    (prompts of 64, 12, 32 and 2 tokens) —
     a ``cuda`` engine (kernels) and a ``cpu`` engine (plain versions) on
     the same weights must log the same ticks, and their greedy streams
     must be equal up to the first position where the CPU run's own top-2
@@ -1349,7 +1621,6 @@ def parity_phase(torch):
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params
-    from repro_torch.serving.sampling import SamplingParams
     from repro_torch.serving.scheduler import PhaseAwareConfig
 
     for name in ("llama2-7b", "qwen3-8b"):
@@ -1368,21 +1639,40 @@ def parity_phase(torch):
                         phase=PhaseAwareConfig(prefill_chunk=c, pack_align=8)),
                    long + short[1:]) for c in (0, 64)]
         for kw, prompts in cases:
-            runs = []
-            for dev, params in ((DEV, params_dev), ("cpu", params_cpu)):
-                eng = make_engine(torch, cfg, params, dev, max_batch=4, **kw)
-                with RecordMargins(torch, eng) as rec:
-                    reqs = eng.generate(prompts,
-                                        SamplingParams(max_new_tokens=8))
-                runs.append((
-                    [(t.prefill_reqs, t.decode_reqs, t.preemptions,
-                      t.prefill_tokens) for t in eng.tick_log],
-                    [list(r.generated) for r in reqs], eng.preemptions,
-                    [rec.margins[r.req_id] for r in reqs]))
-            label = (f"{name} {kw.get('kv_dtype', 'f32')} "
-                     f"{'paged' if kw.get('paged', True) else 'dense'} "
-                     f"chunk={kw['phase'].prefill_chunk}")
-            compare_parity(label, runs, kw, len(prompts))
+            parity_case(torch, name, cfg, params_dev, params_cpu, kw, prompts)
+    # reduced mamba2: whole-prompt prefill through B7 (chunks of 32; the
+    # 2-token prompt's conv window left-padded) and the recurrent decode
+    cfg = dataclasses.replace(get_config("mamba2-2.7b").reduced(),
+                              dtype="float32")
+    params_cpu = init_params(cfg, torch.Generator().manual_seed(7), "cpu")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n in (64, 12, 32, 2)]
+    parity_case(torch, "mamba2-2.7b", cfg, _to_device(params_cpu, DEV),
+                params_cpu, dict(paged=False, max_len=96,
+                                 phase=PhaseAwareConfig(prefill_chunk=0)),
+                prompts)
+
+
+def parity_case(torch, name, cfg, params_dev, params_cpu, kw, prompts):
+    """One ``parity`` case: the same requests on a ``cuda`` and a ``cpu``
+    engine, compared by ``compare_parity``."""
+    from repro_torch.serving.sampling import SamplingParams
+
+    runs = []
+    for dev, params in ((DEV, params_dev), ("cpu", params_cpu)):
+        eng = make_engine(torch, cfg, params, dev, max_batch=4, **kw)
+        with RecordMargins(torch, eng) as rec:
+            reqs = eng.generate(prompts, SamplingParams(max_new_tokens=8))
+        runs.append((
+            [(t.prefill_reqs, t.decode_reqs, t.preemptions,
+              t.prefill_tokens) for t in eng.tick_log],
+            [list(r.generated) for r in reqs], eng.preemptions,
+            [rec.margins[r.req_id] for r in reqs]))
+    label = (f"{name} {kw.get('kv_dtype', 'f32')} "
+             f"{'paged' if kw.get('paged', True) else 'dense'} "
+             f"chunk={kw['phase'].prefill_chunk}")
+    compare_parity(label, runs, kw, len(prompts))
 
 
 def compare_parity(label, runs, kw, n_prompts):
@@ -1468,6 +1758,7 @@ def main() -> int:
     main_quantized = run("serve_quantized", serve_quantized_phase, torch,
                          timer)
     main_dense = run("serve_dense", serve_dense_phase, torch, timer)
+    main_ssm = run("serve_ssm", serve_ssm_phase, torch, timer)
     run("preempt", preempt_phase, torch)
     run("parity", parity_phase, torch)
     if failed:
@@ -1492,7 +1783,10 @@ def main() -> int:
                    "src/repro/kernels/flash_attention.py:83", main_dense),
                "decode_attention": (
                    "src/repro_torch/csrc/decode_attention.cu",
-                   "src/repro/kernels/decode_attention.py:96", main_dense)}
+                   "src/repro/kernels/decode_attention.py:96", main_dense),
+               "ssd_chunk": (
+                   "src/repro_torch/csrc/ssd_chunk.cu",
+                   "src/repro/kernels/ssd_scan.py:64", main_ssm)}
     kernels = []
     for kname, (source, replaces, main) in sources.items():
         r = main[kname]

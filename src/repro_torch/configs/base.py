@@ -406,9 +406,10 @@ def _load_all() -> None:
     if _LOADED:
         return
     _LOADED = True
-    # the port carries the paper's two evaluation models; the other
-    # architectures of the reference registry join with their slices
+    # the port carries the paper's two evaluation models and mamba2; the
+    # other architectures of the reference registry join with their slices
     from repro_torch.configs import (  # noqa: F401
         llama2_7b,
+        mamba2_2p7b,
         qwen3_8b,
     )

@@ -29,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 KERNELS = ("paged_decode_attention", "packed_prefill_attention", "gemv_int8",
-           "paged_decode_attention_q4", "flash_attention", "decode_attention")
+           "paged_decode_attention_q4", "flash_attention", "decode_attention",
+           "ssd_chunk")
 
 # torch dtype -> the dtype code of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -47,6 +48,7 @@ SIGNATURES = {
         [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P],
     "flash_attention": [I, P, P, P, P, I, I, I, I, I, I, I, F, P],
     "decode_attention": [I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
+    "ssd_chunk": [I, P, P, P, P, P, P, P, I, I, I, I, I, P],
 }
 
 _lock = threading.Lock()

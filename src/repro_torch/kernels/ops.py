@@ -14,6 +14,7 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gemv_cid as _gemv
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def _on_cpu(t) -> bool:
@@ -75,3 +76,11 @@ def gemv(x, w, scale=None):
     w in x's dtype without one.  Result in x's dtype."""
     fn = _ref.gemv_ref if _on_cpu(x) else _gemv.gemv
     return fn(x, w, scale)
+
+
+def ssd_chunk(x, dt, A, Bm, Cm):
+    """Mamba-2 intra-chunk SSD over stacked chunks of one B/C group: x
+    [nc,H,Q,P], dt [nc,H,Q], A [H], Bm/Cm [nc,Q,N] -> (y [nc,H,Q,P],
+    states [nc,H,N,P]), f32."""
+    fn = _ref.ssd_chunk_ref if _on_cpu(x) else _ssd.ssd_chunk
+    return fn(x, dt, A, Bm, Cm)

@@ -163,3 +163,28 @@ def packed_prefill_attention_ref(q, k_new, v_new, k_pages, v_pages,
                             n_heads=H, n_kv_heads=Hkv, d_head=D,
                             window=window, softcap=0.0)
     return ctx.reshape(T, H, D).to(q.dtype)
+
+
+def ssd_chunk_ref(x, dt, A, Bm, Cm):
+    """Plain version of ``ssd_chunk``: the Mamba-2 SSD inside each of nc
+    stacked chunks for one B/C group, before the inter-chunk recurrence.
+    x [nc,H,Q,P], dt [nc,H,Q], A [H], Bm/Cm [nc,Q,N] -> (y [nc,H,Q,P],
+    states [nc,H,N,P]), both f32, all arithmetic f32:
+
+        cs = cumsum(dt A);  L[i, j] = exp(cs_i - cs_j) for j <= i, else 0
+        y = ((C B^T) o L) (dt x);  state = B^T (exp(cs_last - cs) dt x)
+
+    ``exp`` sees only j <= i (above the diagonal cs_i - cs_j may be
+    positive and overflow: ``models.ssm._segsum`` puts -inf there).  L is
+    materialised as [nc, H, Q, Q] f32."""
+    from repro_torch.models.ssm import _segsum
+
+    dtf = dt.float()
+    dA = dtf * A.float()[None, :, None]                          # [nc,H,Q]
+    cs = torch.cumsum(dA, dim=-1)
+    xb = x.float() * dtf[..., None]                              # [nc,H,Q,P]
+    cb = Cm.float() @ Bm.float().transpose(-1, -2)               # [nc,Q,Q]
+    y = (cb[:, None] * torch.exp(_segsum(dA))) @ xb
+    decay = torch.exp(cs[..., -1:] - cs)                         # [nc,H,Q]
+    states = Bm.float().transpose(-1, -2)[:, None] @ (xb * decay[..., None])
+    return y, states

@@ -8,6 +8,9 @@ main path of src/repro/launch/serve.py).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
       --no-paged --max-len 8192 --prefill-chunk 0 --prompt-len 8000
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+      --no-paged --max-len 8448 --prefill-chunk 0 --prompt-len 8192
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --reduced --device cpu          # the plain PyTorch path, no card
 
@@ -21,6 +24,13 @@ the int4 paged decode kernel); quantized KV needs the paged pool.
 slot (the JAX CLI's default; this one defaults to the paged pool).  There
 ``--prefill-chunk 0`` prefills every prompt whole, in the flash-attention
 kernel above 2048 tokens, and decode runs in the dense flash-decode kernel.
+``--arch mamba2-2.7b`` serves only there (``--no-paged --prefill-chunk
+0``, as the reference does): its prefill runs the SSD chunk kernel, and a
+prompt longer than the SSD chunk (256 tokens; 32 with ``--reduced``) must be
+a multiple of it, as in the reference.
+
+``--stop-token ID`` (repeatable) ends a request when it emits that token
+(finish reason ``stop``).
 
 Weights are random, drawn from ``--seed`` on the device (no checkpoint is
 read).  ``--reduced`` runs the family's tiny f32 config.  The engine runs on
@@ -35,6 +45,7 @@ import argparse
 import dataclasses
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -42,7 +53,7 @@ import numpy as np
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-8b",
-                    choices=["qwen3-8b", "llama2-7b"])
+                    choices=["qwen3-8b", "llama2-7b", "mamba2-2.7b"])
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config in f32")
     ap.add_argument("--requests", type=int, default=4)
@@ -75,6 +86,10 @@ def main(argv=None) -> int:
                     choices=["f32", "int8"],
                     help="int8: per-output-channel quantized matmul weights")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--stop-token", type=int, action="append", default=[],
+                    metavar="ID",
+                    help="extra stop-token id (repeatable; finish reason "
+                         "'stop')")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (the plain versions)")
     args = ap.parse_args(argv)
@@ -83,7 +98,8 @@ def main(argv=None) -> int:
 
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
-    from repro_torch.kernels import decode_attention, flash_attention, gemv_cid
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     gemv_cid, ssd_scan)
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import ServeConfig, ServingEngine
     from repro_torch.serving.sampling import SamplingParams
@@ -114,11 +130,12 @@ def main(argv=None) -> int:
                flash_attention.packed_prefill_attention, gemv_cid.gemv,
                decode_attention.paged_decode_attention_q4,
                flash_attention.flash_attention,
-               decode_attention.decode_attention)
+               decode_attention.decode_attention, ssd_scan.ssd_chunk)
     launches0 = [k.launches for k in kernels]
     t0 = time.monotonic()
     done = engine.generate(prompts,
-                           SamplingParams(max_new_tokens=args.max_new))
+                           SamplingParams(max_new_tokens=args.max_new,
+                                          stop=tuple(args.stop_token)))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.monotonic() - t0
@@ -131,8 +148,11 @@ def main(argv=None) -> int:
     print(f"arch={cfg.name} device={device} strategy={args.strategy} "
           f"chunk={args.prefill_chunk} requests={len(done)} "
           f"tokens={total_new} wall={wall:.2f}s")
+    reasons_s = " ".join(f"{k}={v}" for k, v in sorted(
+        Counter(r.finish_reason for r in done).items(),
+        key=lambda kv: str(kv[0])))
     print(f"TTFT p50={ttft_p50:.1f}ms  TPOT p50={tpot_p50:.1f}ms  "
-          f"throughput={total_new / wall:.1f} tok/s")
+          f"throughput={total_new / wall:.1f} tok/s  finish[{reasons_s}]")
     occ = engine.phase_occupancy()
     print(f"ticks={engine.n_ticks} occupancy prefill={occ['prefill']:.2f} "
           f"decode={occ['decode']:.2f} mixed={occ['mixed']:.2f}  "

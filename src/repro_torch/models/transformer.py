@@ -1,7 +1,7 @@
-"""Model assembly for serving (port of the dense-attention part of
-src/repro/models/transformer.py): whole-prompt prefill, and one-token
-decode and packed chunked prefill over either the paged pool or the dense
-per-slot decode arena.
+"""Model assembly for serving (port of the dense-attention and Mamba-2
+parts of src/repro/models/transformer.py): whole-prompt prefill, and
+one-token decode and packed chunked prefill over either the paged pool or
+the dense per-slot decode arena.
 
 The layer stack is a sequence of RUNS — maximal groups of layers with one
 block structure — whose parameters are stacked along a leading layer axis,
@@ -9,8 +9,9 @@ in the reference's pytree layout.  The reference scans each run with
 ``jax.lax.scan``; here a Python loop walks layer views ``runs[r][...][l]``.
 
 Supported plans: all-attention, dense-FFN, single-codebook, no MLA — the
-paper's llama2-7b and qwen3-8b.  The other families arrive with ROADMAP
-queue A, item 11.
+paper's llama2-7b and qwen3-8b — and all-SSM (mamba2-2.7b), whose runs
+serve only on the dense arena with whole-prompt prefill, as in the
+reference.  The other families arrive with ROADMAP queue A, item 11.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     dense_init,
     embed_init,
@@ -50,35 +52,44 @@ class RunSpec:
 
 
 def build_plan(cfg: ModelConfig) -> List[RunSpec]:
-    """Runs of an all-attention dense plan (the reference's ``build_plan``
-    restricted to the families this slice serves)."""
+    """Runs of an all-attention or all-SSM plan (the reference's
+    ``build_plan``, src/repro/models/transformer.py:64, for the families
+    this port serves): an SSM layer of a model without an FFN (d_ff == 0)
+    has ffn kind "none"."""
     check_supported(cfg)
     kinds = cfg.layer_kinds()
+
+    def sig(i: int) -> Tuple[str, str]:
+        k = kinds[i]
+        return (k, "none" if (k == "ssm" and cfg.d_ff == 0) else "dense")
+
     runs: List[RunSpec] = []
     i = 0
     while i < cfg.n_layers:
+        kind, ffn_kind = sig(i)
         j = i
-        while j < cfg.n_layers and kinds[j] == kinds[i]:
+        while j < cfg.n_layers and sig(j) == (kind, ffn_kind):
             j += 1
         window, theta = 0, cfg.attn.rope_theta
-        if kinds[i] == "attn_local":
+        if kind == "attn_local":
             window = cfg.attn.sliding_window
             if cfg.attn.rope_local_theta:
                 theta = cfg.attn.rope_local_theta
-        runs.append(RunSpec("attn", j - i, "dense", window, theta,
-                            layer_start=i))
+        runs.append(RunSpec("attn" if kind.startswith("attn") else "ssm",
+                            j - i, ffn_kind, window, theta, layer_start=i))
         i = j
     return runs
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a model family this slice does not serve yet."""
-    if (cfg.family not in ("dense",) or cfg.mla.enabled or cfg.moe.enabled
-            or cfg.ssm.enabled or cfg.hybrid.enabled or cfg.n_codebooks > 1
-            or cfg.frontend != "none"):
+    """Raise for a model family this port does not serve yet."""
+    if (cfg.family not in ("dense", "ssm") or cfg.mla.enabled
+            or cfg.moe.enabled or cfg.hybrid.enabled or cfg.n_codebooks > 1
+            or cfg.frontend != "none"
+            or (cfg.family == "ssm") != cfg.ssm.enabled):
         raise NotImplementedError(
-            f"{cfg.name}: only dense all-attention models are ported so far "
-            "(other architectures: ROADMAP queue A, item 11)")
+            f"{cfg.name}: only dense all-attention models and Mamba-2 are "
+            "ported so far (other architectures: ROADMAP queue A, item 11)")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -103,12 +114,25 @@ def supports_paged(cfg: ModelConfig) -> bool:
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device) -> List[Any]:
-    """The dense decode arena, zeros: per run {"k", "v"} of [L, batch,
-    cache_len(run, seq_len), Hkv, D] in the model dtype (the reference's
-    ``init_cache``, src/repro/models/transformer.py:208, attention runs)."""
+    """The dense decode arena, zeros (the reference's ``init_cache``,
+    src/repro/models/transformer.py:208): per attention run {"k", "v"} of
+    [L, batch, cache_len(run, seq_len), Hkv, D] in the model dtype; per SSM
+    run {"conv": [L, batch, d_conv - 1, conv_dim] in the model dtype,
+    "state": [L, batch, H, P, N] f32}."""
     dtype = torch_dtype(cfg.dtype)
     caches: List[Any] = []
     for run in build_plan(cfg):
+        if run.kind == "ssm":
+            s = cfg.ssm
+            conv_dim = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
+            caches.append({
+                "conv": torch.zeros((run.n_layers, batch, s.d_conv - 1,
+                                     conv_dim), dtype=dtype, device=device),
+                "state": torch.zeros((run.n_layers, batch,
+                                      s.n_heads(cfg.d_model), s.head_dim,
+                                      s.d_state), dtype=torch.float32,
+                                     device=device)})
+            continue
         shape = (run.n_layers, batch, cache_len(run, seq_len),
                  cfg.n_kv_heads, cfg.d_head)
         caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -126,7 +150,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random weights drawn from ``generator`` directly on ``device``, with
     the reference's pytree layout, shapes and init scales
     (src/repro/models/transformer.py:119,162): truncated-normal fan-in
-    matmul weights, 0.02-normal embedding and LM head, unit norms."""
+    matmul weights, 0.02-normal embedding and LM head, unit norms; an SSM
+    layer's block as ``ssm.ssm_init`` draws it."""
     dtype = torch_dtype(cfg.dtype)
     d, V = cfg.d_model, padded_vocab(cfg)
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -144,14 +169,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     runs = []
     for run in build_plan(cfg):
         L = run.n_layers
-        attn = {"wq": empty(L, d, H * Dh), "wk": empty(L, d, Hkv * Dh),
-                "wv": empty(L, d, Hkv * Dh), "wo": empty(L, H * Dh, d)}
         ffn_p = {"wi_gate": empty(L, d, cfg.d_ff),
                  "wi_up": empty(L, d, cfg.d_ff),
                  "wo": empty(L, cfg.d_ff, d)}
-        for stack in list(attn.values()) + list(ffn_p.values()):
-            for layer in stack:
-                dense_init(layer, generator)
+        if run.kind == "ssm":
+            rp = {"ln1": {"scale": ones(L, d)},
+                  "ssm": _stacked(L, lambda: ssm_mod.ssm_init(
+                      d, cfg.ssm, dtype, generator, device))}
+            if run.ffn_kind == "dense":
+                _dense_init_all(ffn_p.values(), generator)
+                rp.update(ln2={"scale": ones(L, d)}, ffn=ffn_p)
+            runs.append(rp)
+            continue
+        attn = {"wq": empty(L, d, H * Dh), "wk": empty(L, d, Hkv * Dh),
+                "wv": empty(L, d, Hkv * Dh), "wo": empty(L, H * Dh, d)}
+        _dense_init_all(list(attn.values()) + list(ffn_p.values()),
+                        generator)
         if cfg.attn.qk_norm:
             attn["q_norm"] = ones(L, Dh)
             attn["k_norm"] = ones(L, Dh)
@@ -159,6 +192,27 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                      "ln2": {"scale": ones(L, d)}, "ffn": ffn_p})
     params["runs"] = runs
     return params
+
+
+def _dense_init_all(stacks, generator) -> None:
+    """``dense_init`` every layer of every stacked [L, in, out] matrix."""
+    for stack in stacks:
+        for layer in stack:
+            dense_init(layer, generator)
+
+
+def _stacked(L: int, init_layer) -> Params:
+    """``init_layer()``'s leaves for L layers stacked on a leading axis,
+    filled one layer at a time (one layer's draw in memory beside the
+    stack, not L of them)."""
+    first = init_layer()
+    out = {k: torch.empty((L,) + tuple(v.shape), dtype=v.dtype,
+                          device=v.device) for k, v in first.items()}
+    for l in range(L):
+        layer = first if l == 0 else init_layer()
+        for k, v in layer.items():
+            out[k][l] = v
+    return out
 
 
 def layer_view(tree, layer: int):
@@ -253,6 +307,34 @@ def _attn_layer_chunk_packed(cfg, run, lp, x, seg, cache, view):
     return _ffn_residual(cfg, lp, x + a)
 
 
+def _ssm_layer_prefill(cfg, run, lp, x):
+    """One SSM layer of a whole-prompt prefill: (x, (conv_state, state))."""
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    o, states = ssm_mod.ssm_prefill(lp["ssm"], h, cfg.d_model, cfg.ssm)
+    x = x + o
+    if run.ffn_kind == "dense":
+        x = _ffn_residual(cfg, lp, x)
+    return x, states
+
+
+def _ssm_layer_decode(cfg, run, lp, x, cache, rows=None):
+    """One SSM layer of a dense-arena one-token decode step: every row is
+    computed, and ``cache`` (the layer's arena view) takes the new conv
+    window and state at ``rows`` only (every row when None), in place."""
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    o, conv, state = ssm_mod.ssm_decode(lp["ssm"], h, cache["conv"],
+                                        cache["state"], cfg.d_model, cfg.ssm)
+    for key, new in (("conv", conv), ("state", state)):
+        if rows is None:
+            cache[key].copy_(new)
+        else:
+            cache[key][rows] = new[rows].to(cache[key].dtype)
+    x = x + o
+    if run.ffn_kind == "dense":
+        x = _ffn_residual(cfg, lp, x)
+    return x
+
+
 def _pool_geometry(cache_run, run: RunSpec) -> Tuple[int, int, int]:
     n_pages, P = cache_run["k"].shape[1], cache_run["k"].shape[2]
     return attn_mod._paged_ring(run.window, n_pages, P), P, n_pages
@@ -276,7 +358,7 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
         (one [B, W] int32 table per run) ``cache`` is the PAGED pool from
         ``serving.kv_pool.KVPool``; without, it is the dense arena of
         ``init_cache``, and only the rows of ``slot_mask`` [B] bool (every
-        row when None) write their new K/V.
+        row when None) write their new K/V, conv window and SSM state.
 
     The train phase arrives with ROADMAP queue A, item 12."""
     if phase == "prefill":
@@ -298,6 +380,12 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
             else torch.nonzero(torch.as_tensor(slot_mask,
                                                device=x.device)).flatten())
     for r, run in enumerate(build_plan(cfg)):
+        if run.kind == "ssm":
+            for l in range(run.n_layers):
+                x = _ssm_layer_decode(cfg, run,
+                                      layer_view(params["runs"][r], l), x,
+                                      layer_view(cache[r], l), rows)
+            continue
         if block_tables is not None:
             bt = block_tables[r]
             R, P, n_pages = _pool_geometry(cache[r], run)
@@ -318,16 +406,21 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
 
 def _prefill(params, cfg, tokens, on_kv) -> torch.Tensor:
     """The whole-prompt forward: every layer at positions 0..T-1, each
-    layer's K/V handed to ``on_kv(run index, layer, k, v)`` as it is made
-    (k/v [B,T,Hkv,D]), the last position's logits [B,1,V] f32 returned."""
+    layer's cache leaves handed to ``on_kv(run index, layer, a, b)`` as they
+    are made — K and V [B,T,Hkv,D] of an attention layer, the conv window
+    [B, d_conv-1, conv_dim] and state [B,H,P,N] of an SSM layer — and the
+    last position's logits [B,1,V] f32 returned."""
     x = embed_tokens(params, cfg, tokens)
     B, T = x.shape[0], x.shape[1]
     positions = torch.arange(T, device=x.device).expand(B, T)
     for r, run in enumerate(build_plan(cfg)):
         for l in range(run.n_layers):
-            x, (k, v) = _attn_layer_prefill(
-                cfg, run, layer_view(params["runs"][r], l), x, positions)
-            on_kv(r, l, k, v)
+            lp = layer_view(params["runs"][r], l)
+            if run.kind == "ssm":
+                x, (a, b) = _ssm_layer_prefill(cfg, run, lp, x)
+            else:
+                x, (a, b) = _attn_layer_prefill(cfg, run, lp, x, positions)
+            on_kv(r, l, a, b)
     x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return lm_logits(params, cfg, x)
 
@@ -344,8 +437,12 @@ def _ring_order(run: RunSpec, x, T: int):
 
 
 def _pack_prefill_cache(run: RunSpec, kvs, T: int):
-    """One run's per-layer prefill K/V as the decode cache layout: {"k",
-    "v"} of [L, B, cache_len(run, T), Hkv, D], in ring order."""
+    """One run's per-layer prefill leaves as the decode cache layout:
+    {"k", "v"} of [L, B, cache_len(run, T), Hkv, D] in ring order for an
+    attention run, {"conv", "state"} of [L, B, ...] for an SSM run."""
+    if run.kind == "ssm":
+        return {"conv": torch.stack([c for c, _ in kvs]),
+                "state": torch.stack([s for _, s in kvs])}
     return {"k": torch.stack([_ring_order(run, k, T) for k, _ in kvs]),
             "v": torch.stack([_ring_order(run, v, T) for _, v in kvs])}
 
@@ -353,21 +450,26 @@ def _pack_prefill_cache(run: RunSpec, kvs, T: int):
 def prefill_into_arena(params: Params, cfg: ModelConfig, batch, slot: int,
                        cache: List[Any]):
     """Whole-prompt prefill of one request (batch["tokens"] [1, T]) spliced
-    into arena slot ``slot``: each layer's K/V goes straight into the
-    arena as it is made, in ring order, its last min(T_ring, R) entries at
-    positions [0, pl) of the slot, so the arena ends as the reference's
+    into arena slot ``slot``: each layer's cache leaves go straight into
+    the arena as they are made — K/V in ring order, their last min(T_ring,
+    R) entries at positions [0, pl) of the slot; an SSM layer's conv window
+    and state whole — so the arena ends as the reference's
     ``splice_arena`` (src/repro/models/transformer.py:842) leaves it,
     without a stacked copy of every layer.  Returns (last_logits [1, 1, V]
     f32, cache) — the arena updated in place."""
     T = batch["tokens"].shape[-1]
     plan = build_plan(cfg)
 
-    def write(r, l, k, v):
-        for key, x in (("k", k), ("v", v)):
-            a = cache[r][key]
+    def write(r, l, a, b):
+        if plan[r].kind == "ssm":
+            for key, x in (("conv", a), ("state", b)):
+                cache[r][key][l, slot] = x[0].to(cache[r][key].dtype)
+            return
+        for key, x in (("k", a), ("v", b)):
+            arena = cache[r][key]
             x = _ring_order(plan[r], x, T)
-            pl = min(x.shape[1], a.shape[2])
-            a[l, slot, :pl] = x[0, x.shape[1] - pl:]
+            pl = min(x.shape[1], arena.shape[2])
+            arena[l, slot, :pl] = x[0, x.shape[1] - pl:]
 
     return _prefill(params, cfg, batch["tokens"], write), cache
 
@@ -395,6 +497,10 @@ def forward_chunk_packed(params: Params, cfg: ModelConfig, tokens, starts,
     x = embed_tokens(params, cfg, tokens[None])                  # [1, T, d]
     seg = attn_mod.make_packed_segs(starts, offsets, lengths, slots, T)
     for r, run in enumerate(build_plan(cfg)):
+        if run.kind != "attn":
+            raise NotImplementedError(
+                f"packed prefill over {run.kind!r} runs; gate on "
+                "supports_chunked_prefill()")
         if block_tables is None:
             B, R = cache[r]["k"].shape[1], cache[r]["k"].shape[2]
             view = attn_mod.arena_packed_view(seg, B, R)

@@ -31,6 +31,10 @@ kernel, chunked prefill attention in the packed-prefill kernel and a
 whole prompt above 2048 tokens in the flash-attention kernel; the arena is
 updated in place.
 
+An SSM plan (Mamba-2) keeps a conv window and an f32 recurrent state per
+slot in the dense arena, prefills every prompt whole (its prefill runs the
+SSD chunk kernel) and cannot use the paged pool, as in the reference.
+
 The host logic (admission, planning, packing, preemption, retirement,
 counters) is the reference's, line for line where the slice reaches it, so
 the tick log of this engine equals the reference engine's on the same
@@ -87,12 +91,49 @@ __all__ = [
 ]
 
 
-def _unported(sc: ServeConfig) -> Optional[str]:
+def _refused(cfg: ModelConfig, sc: ServeConfig) -> None:
+    """The combinations the reference refuses for good, with its
+    ``ValueError``s, in its order (src/repro/serving/engine.py:244-310)."""
+    if sc.weights_dtype not in ("f32", "int8"):
+        raise ValueError(f"weights_dtype={sc.weights_dtype!r} "
+                         "(expected 'f32' or 'int8')")
+    if sc.paged:
+        if not supports_paged(cfg):
+            raise ValueError(
+                f"{cfg.name}: paged serving needs an all-attention plan "
+                "(SSM / shared-attention runs keep the dense arena)")
+        if sc.phase.prefill_chunk <= 0:
+            raise ValueError("paged serving requires chunked prefill "
+                             "(prefill_chunk > 0)")
+    else:
+        if sc.kv_dtype != "f32":
+            raise ValueError(
+                f"kv_dtype={sc.kv_dtype!r} requires paged=True (the "
+                "dense engine stores the arena in the model dtype)")
+        if sc.prefix_cache:
+            raise ValueError("prefix_cache=True requires paged=True "
+                             "(prefix reuse shares physical pages "
+                             "through the block tables)")
+    if sc.host_spill_pages < 0:
+        raise ValueError(f"host_spill_pages={sc.host_spill_pages} < 0")
+    if sc.host_spill_pages and not sc.paged:
+        raise ValueError("host_spill_pages > 0 requires paged=True "
+                         "(the spill tier stores device pool pages)")
+    if sc.speculative is not None and not sc.paged:
+        raise ValueError(
+            "speculative decoding requires paged=True (the "
+            "draft/verify loop writes and rolls back through the "
+            "paged arena's block tables)")
+
+
+def _unported(sc: ServeConfig, chunked: bool) -> Optional[str]:
     """The first ``ServeConfig`` option this slice does not serve, with the
-    ROADMAP queue A item that brings it; None when every option is in."""
+    ROADMAP queue A item that brings it; None when every option is in.
+    ``packed_prefill`` matters only to a chunked prefill: the reference
+    reads it as ``packed_prefill and chunked``."""
     checks = [
-        (not sc.packed_prefill, "packed_prefill=False (the padded [N, C] "
-                                "prefill batch): item 11"),
+        (not sc.packed_prefill and chunked,
+         "packed_prefill=False (the padded [N, C] prefill batch): item 11"),
         (sc.prefix_cache, "prefix_cache=True: item 7"),
         (sc.speculative is not None, "speculative decoding: item 7"),
         (sc.host_spill_pages > 0, "host_spill_pages > 0 (host tier): item 9"),
@@ -133,7 +174,9 @@ class ServingEngine:
                  *, device=None):
         """``params`` must already live on ``device`` (``cuda`` unless the
         caller passes another, e.g. ``device="cpu"``)."""
-        what = _unported(sc)
+        _refused(cfg, sc)
+        chunked = supports_chunked_prefill(cfg) and sc.phase.prefill_chunk > 0
+        what = _unported(sc, chunked)
         if what is not None:
             raise NotImplementedError(
                 f"ServeConfig {what} of ROADMAP queue A (later slice)")
@@ -141,9 +184,6 @@ class ServingEngine:
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"engine runs on {self.device}")
-        if sc.weights_dtype not in ("f32", "int8"):
-            raise ValueError(f"weights_dtype={sc.weights_dtype!r} "
-                             "(expected 'f32' or 'int8')")
         self.metrics = MetricsRegistry()
         self.cfg = cfg
         if sc.weights_dtype == "int8":
@@ -166,26 +206,29 @@ class ServingEngine:
         self.paged = sc.paged
         self.pool: Optional[KVPool] = None
         if sc.paged:
-            if not supports_paged(cfg):
-                raise ValueError(f"{cfg.name}: paged serving needs an "
-                                 "all-attention plan")
-            if sc.phase.prefill_chunk <= 0:
-                raise ValueError("paged serving requires chunked prefill "
-                                 "(prefill_chunk > 0)")
             self.pool = KVPool(cfg, n_slots=B, n_pages=sc.n_pages,
                                page_size=sc.page_size, kv_dtype=sc.kv_dtype,
                                device=self.device)
             self.cache = self.pool.caches
         else:
-            if sc.kv_dtype != "f32":
-                raise ValueError(
-                    f"kv_dtype={sc.kv_dtype!r} requires paged=True (the "
-                    "dense engine stores the arena in the model dtype)")
             self.cache = init_cache(cfg, B, S, self.device)
-        # the dense arena pins its full footprint up front
-        self._dense_kv_bytes = 0 if sc.paged else sum(
-            leaf.numel() * leaf.element_size()
-            for c in self.cache for leaf in c.values())
+        # the dense arena pins its full footprint up front; the split
+        # prices a slot's handoff as the reference's does: seq-axis leaves
+        # ([L, B, S, ...]) per token, recurrent-state leaves (SSM conv and
+        # state) per slot
+        self._dense_kv_bytes = 0
+        self._dense_token_bytes = 0
+        self._dense_state_bytes = 0
+        if not sc.paged:
+            for c in self.cache:
+                for leaf in c.values():
+                    nbytes = leaf.numel() * leaf.element_size()
+                    self._dense_kv_bytes += nbytes
+                    if (leaf.ndim >= 3 and leaf.shape[1] == B
+                            and leaf.shape[2] == S):
+                        self._dense_token_bytes += nbytes // (B * S)
+                    else:
+                        self._dense_state_bytes += nbytes // B
         self.slot_pos = np.full((B,), -1, np.int64)     # next write position
         self.slot_req: List[Optional[Request]] = [None] * B
         self.queue: List[Request] = []
@@ -206,8 +249,7 @@ class ServingEngine:
         self.decode_tokens_emitted = 0
         self.decode_slot_ticks = 0       # (request, tick) decode occupancies
         self._next_id = 0
-        self.chunked = (supports_chunked_prefill(cfg)
-                        and sc.phase.prefill_chunk > 0)
+        self.chunked = chunked
         self.prefill_launches = 0        # prefill phase-program calls
         self.prefill_rows_executed = 0   # token rows computed (incl. pad)
         self.executor = make_executor(sc.executor, {

@@ -59,3 +59,10 @@ def test_guard_covers_the_dense_path():
                 "models/transformer.py", "serving/engine.py",
                 "launch/serve.py"):
         assert f"src/repro_torch/{mod}" in names
+
+
+def test_guard_covers_the_ssm_path():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in ("kernels/ssd_scan.py", "models/ssm.py",
+                "configs/mamba2_2p7b.py", "models/convert.py"):
+        assert f"src/repro_torch/{mod}" in names

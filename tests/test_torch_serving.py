@@ -1,18 +1,26 @@
 """The port's host-side serving pieces against the JAX package's on the CPU:
 the page pool's accounting and invariants, the scheduler's packing and tick
 plans, the KV pool's device layout, greedy sampling, the executor's compile
-counting, and the options this slice refuses."""
+counting, the options this slice refuses, the combinations the reference
+refuses for good (with its errors), and whole-prompt serving with
+``packed_prefill=False``, which the reference serves."""
 
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+from repro.configs.base import get_config as jax_get_config
+from repro.models.transformer import init_params as jax_init_params
+from repro.serving import engine as jax_engine
 from repro.serving import kv_pool as jax_kv_pool
 from repro.serving import scheduler as jax_sched
+from repro.serving import speculative as jax_spec
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
+from repro_torch.models.convert import params_from_jax
 from repro_torch.models.transformer import init_params
 from repro_torch.serving import kv_pool, sampling, scheduler
 from repro_torch.serving.engine import ServeConfig, ServingEngine
@@ -195,3 +203,76 @@ def test_entry_points_never_fall_back_to_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(cfg, params, ServeConfig(paged=True))
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _both_tiny():
+    jcfg = dataclasses.replace(jax_get_config("llama2-7b").reduced(),
+                               dtype="float32")
+    jp = jax_init_params(jax.random.PRNGKey(0), jcfg)
+    cfg = dataclasses.replace(get_config("llama2-7b").reduced(),
+                              dtype="float32")
+    return jcfg, jp, cfg, params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+
+
+@pytest.mark.parametrize("option", [
+    dict(paged=True, host_spill_pages=-1),
+    dict(paged=False, host_spill_pages=-1),
+    dict(paged=False, prefix_cache=True),
+    dict(paged=False, host_spill_pages=4),
+    dict(paged=False, speculative="k=2"),
+    dict(paged=False, kv_dtype="int8"),
+])
+def test_refused_for_good_as_the_reference(option):
+    """Negative host spill pages, and the dense arena with a prefix cache,
+    a host spill tier, speculation or a quantized KV cache: the reference
+    refuses each with a ValueError whatever else is set, and the port
+    raises the same error, before it looks for unported options."""
+    jcfg, jp, cfg, tp = _both_tiny()
+    kw = dict(option)
+    if "speculative" in kw:
+        jkw = dict(kw, speculative=jax_spec.SpecConfig(k=2))
+        kw["speculative"] = SpecConfig(k=2)
+    else:
+        jkw = kw
+    with pytest.raises(ValueError) as want:
+        jax_engine.ServingEngine(jcfg, jp, jax_engine.ServeConfig(**jkw))
+    with pytest.raises(ValueError) as got:
+        ServingEngine(cfg, tp, ServeConfig(**kw), device="cpu")
+    assert str(got.value) == str(want.value)
+
+
+def test_whole_prompt_serves_with_packed_prefill_off():
+    """``packed_prefill=False`` on the dense arena with ``prefill_chunk=0``:
+    the reference reads the flag only for chunked prefill and serves every
+    prompt whole; so does the port, with the reference's tick log and
+    greedy streams (up to the reference's first near-tie)."""
+    from torch_quantized_parity import MARGIN, _record_margins
+
+    jcfg, jp, cfg, tp = _both_tiny()
+    kw = dict(paged=False, packed_prefill=False, max_batch=2, max_len=64)
+    ref = jax_engine.ServingEngine(jcfg, jp, jax_engine.ServeConfig(
+        phase=jax_sched.PhaseAwareConfig(prefill_chunk=0), **kw))
+    ours = ServingEngine(cfg, tp, ServeConfig(
+        phase=scheduler.PhaseAwareConfig(prefill_chunk=0), **kw),
+        device="cpu")
+    margins = _record_margins(ref)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (13, 29, 7)]
+    runs = []
+    for eng in (ref, ours):
+        reqs = [eng.submit(p, max_new_tokens=5) for p in prompts]
+        eng.run_until_drained(max_ticks=100)
+        runs.append(([(t.prefill_reqs, t.decode_reqs, t.prefill_tokens)
+                      for t in eng.tick_log],
+                     [[int(t) for t in r.generated] for r in reqs]))
+    (want_log, want), (got_log, got) = runs
+    assert got_log == want_log and not ours.chunked
+    compared = 0
+    for rid, (a, b) in enumerate(zip(got, want)):
+        assert len(a) == len(b) == 5
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), 5)
+        compared += j
+        if j < 5:
+            assert margins[rid][j] <= MARGIN, (rid, j, margins[rid][j])
+    assert compared >= 8, compared

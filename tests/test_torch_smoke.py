@@ -268,3 +268,91 @@ def test_dense_bf16_tolerance_fails_a_dropped_tile(monkeypatch, name):
     f32_p = plain(*f32, **kw).to(torch.bfloat16)
     assert chip_smoke.close(torch, f32_p, want, "bfloat16", abs_ctx)[1]
     assert not chip_smoke.close(torch, got, want, "bfloat16", abs_ctx)[1]
+
+
+def test_serve_cli_stop_tokens_as_the_reference(capsys):
+    """``--stop-token`` is repeatable and feeds ``SamplingParams.stop`` in
+    both CLIs: with every id of the reduced vocabulary a stop token, every
+    request stops at its first token with finish reason "stop"."""
+    from repro.launch import serve as jax_serve
+    from repro_torch.launch import serve
+    argv = ["--arch", "llama2-7b", "--reduced", "--requests", "3",
+            "--prompt-len", "12", "--max-new", "4", "--max-len", "64",
+            "--no-paged"]
+    stops = [a for i in range(256) for a in ("--stop-token", str(i))]
+    assert serve.main(argv + ["--device", "cpu"] + stops) == 0
+    ours = capsys.readouterr().out
+    assert jax_serve.main([a for a in argv if a != "--no-paged"] + stops) == 0
+    want = capsys.readouterr().out
+    for out in (ours, want):
+        assert "requests=3 tokens=3 " in out and "finish[stop=3]" in out
+    assert serve.main(argv + ["--device", "cpu", "--max-new", "2"]) == 0
+    assert "finish[length=3]" in capsys.readouterr().out
+
+
+def test_serve_cli_mamba2_on_cpu(capsys):
+    """mamba2 serves on the dense arena with whole-prompt prefill (the SSD
+    chunk kernel's plain version here); the paged pool is refused with the
+    reference's error."""
+    from repro_torch.launch import serve
+    argv = ["--arch", "mamba2-2.7b", "--reduced", "--device", "cpu",
+            "--requests", "2", "--prompt-len", "64", "--max-new", "4"]
+    assert serve.main(argv + ["--no-paged", "--max-len", "96",
+                              "--prefill-chunk", "0"]) == 0
+    out = capsys.readouterr().out
+    assert "requests=2 tokens=8" in out and "kv=dense[4x96]" in out
+    assert "ssd_chunk=0" in out
+    assert np.isfinite(float(out.split("TTFT p50=")[1].split("ms")[0]))
+    with pytest.raises(ValueError, match="all-attention plan"):
+        serve.main(argv + ["--paged"])
+
+
+def test_ssd_bound_counts_the_causal_half(monkeypatch):
+    """Bytes: x, dt, A, B, C read once, y and the states written once (f32);
+    operations: C B^T and the weighted product over the Q(Q+1)/2 pairs
+    j <= i, and the state's 2 Q N P per chunk and head."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    nc, H, Q, P, N = 2, 8, 40, 16, 32
+    args = chip_smoke.ssd_inputs(torch, nc, H, Q, P, N, torch.bfloat16, 0)
+    x, dt, A, B, C = args
+    assert x.dtype == B.dtype == torch.bfloat16 and dt.dtype == torch.float32
+    assert (dt > 0).all() and (A < 0).all()
+    pairs = Q * (Q + 1) // 2
+    flops = nc * (2 * pairs * N + H * (2 * pairs * P + 2 * Q * N * P))
+    nbytes = (2 * (nc * H * Q * P + 2 * nc * Q * N) + 4 * (nc * H * Q + H)
+              + 4 * nc * H * (Q * P + N * P))
+    t_ops = flops / chip_smoke.PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3
+    ms, by = chip_smoke.ssd_cost(*args)
+    assert ms == pytest.approx(max(t_ops, t_bytes))
+    assert by == ("operations" if t_ops > t_bytes else "bytes")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_tolerance_fails_a_dropped_row_tile(monkeypatch, dtype):
+    """B7's bound passes the same function computed in float64 and rounded
+    to f32, and fails a result missing one 64-row tile of one block's four
+    heads (rows 64..127 of heads 0..3 of chunk 1), at mamba2's P and N and
+    a full 256-token chunk."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    from repro_torch.kernels import ref
+    args = chip_smoke.ssd_inputs(torch, 2, 8, 256, 64, 128, dtype, 5)
+    want = ref.ssd_chunk_ref(*args)
+    tol, A = chip_smoke.tolerance(torch, "ssd_chunk", args, {}, "float32")
+    x, dt, a, B, C = (t.double() for t in args)
+    cs = torch.cumsum(dt * a[None, :, None], dim=-1)
+    Q = x.shape[2]
+    tri = torch.ones((Q, Q), dtype=torch.bool).tril()
+    L = torch.exp(torch.where(tri, cs[..., :, None] - cs[..., None, :],
+                              -math.inf))
+    xb = x * dt[..., None]
+    f64 = ((C @ B.transpose(-1, -2))[:, None] * L @ xb,
+           B.transpose(-1, -2)[:, None]
+           @ (xb * torch.exp(cs[..., -1:] - cs)[..., None]))
+    f64 = tuple(t.to(torch.float32) for t in f64)
+    assert chip_smoke.close(torch, chip_smoke.flat(f64),
+                            chip_smoke.flat(want), "float32", A, tol)[1]
+    y = want[0].clone()
+    y[1, 0:4, 64:128] = 0
+    assert not chip_smoke.close(torch, chip_smoke.flat((y, want[1])),
+                                chip_smoke.flat(want), "float32", A, tol)[1]
