@@ -25,7 +25,10 @@ Phases, one JSON line each:
    (one 8192-token page per slot, block table = slot, unwritten rows NaN);
    and the SSD chunk kernel (B7) at mamba2 geometry (H=80, P=64, N=128)
    for 32 chunks of 256, one of 200 and one of 24, x/B/C in f32 and bf16
-   (dt and A f32, made as ``ssm_prefill`` makes them).
+   (dt and A f32, made as ``ssm_prefill`` makes them); the prefill GEMM
+   (B8) at M = 2048 and every (K, N) of the two models' projections
+   (2048 x 4096 x 12288 among them) and at M = 37; B5 and B2 at head dim
+   64, the benchmark runner's.
    Tolerances: B7, whatever the input dtype, the per-element worst-case
    bound of f32 arithmetic of ``ssd_tolerance``; otherwise
    f32 |err| <= 1e-4; bf16 (see ``tolerance``) for the float
@@ -40,7 +43,8 @@ Phases, one JSON line each:
    32-key tile of a 2k-token walk fails it.  The int8 GEMV and the int4
    decode compute in f32 throughout, so their bf16 bound is one output
    rounding per side plus the f32 summation term: |err| <= 2^-7 |ref| +
-   (2n + 2) 2^-24 A over n summed terms.  Times are CUDA
+   (2n + 2) 2^-24 A over n summed terms; B8 the same with n = K and
+   A = |x| @ |w|, in f32 without the 2^-7 |ref| term.  Times are CUDA
    events, median of 20 launches, L2 flushed between launches; ``bound_ms``
    is the larger of the bytes the call must move over 3.35 TB/s and its
    operations over the peak rate of its type (989 TFLOP/s bf16, 67 TFLOP/s
@@ -52,8 +56,15 @@ Phases, one JSON line each:
    H query heads beforehand) with a boolean mask (``is_causal`` for B5
    without a window), for the GEMV ``torch.matmul`` on the weight
    dequantized beforehand, for B7 three batched ``torch.matmul`` calls over
-   a materialised L — a yardstick only, never used by the port.
-4. ``serve``   — ``ServingEngine`` on qwen3-8b at full width and all 36
+   a materialised L, for B8 ``torch.matmul`` on the same tensors — a
+   yardstick only, never used by the port.
+4. ``bench``   — the port's benchmark runner in process,
+   ``repro_torch.benchmarks.run.main(["--device", "cuda"])``: the HALO
+   analytic model's paper figures and the kernel micro-benchmarks, each
+   row a JSON line, all finite.  B8, the GEMV, B5, B6 and B2 must launch
+   there and no other kernel, and no plain version may be called; B8 is
+   re-checked at the inputs of its 2048 x 4096 x 12288 bf16 launch.
+5. ``serve``   — ``ServingEngine`` on qwen3-8b at full width and all 36
    layers in bf16 (random weights from a seeded ``torch.Generator`` on the
    card): paged pool (page 16, 1024 pages), max_batch 4, default
    ``PhaseAwareConfig`` (halo, prefill_chunk 2048, pack_align 8), prompts of
@@ -68,7 +79,7 @@ Phases, one JSON line each:
    says where one more round's time goes under ``torch.profiler`` (device
    busy time, top kernels) and estimates the device's idle share as one
    minus that busy time over the unprofiled rounds' median wall time.
-5. ``serve_quantized`` — the same model and prompts with int8 weights and
+6. ``serve_quantized`` — the same model and prompts with int8 weights and
    packed-int4 KV pages (HALO's decode datapath), two rounds: the int8 GEMV
    must launch 7 x n_layers times per decode step (wq, wk, wv, wo and the
    three FFN matmuls), the int4 decode kernel n_layers times per decode
@@ -76,7 +87,7 @@ Phases, one JSON line each:
    n_layers times per prefill step, the float decode kernel never; each
    kernel is re-checked at the main path's inputs as in ``serve``, and a
    ``profile`` line (``"of": "serve_quantized"``) follows as for ``serve``.
-6. ``serve_dense`` — qwen3-8b as in ``serve`` on the DENSE arena
+7. ``serve_dense`` — qwen3-8b as in ``serve`` on the DENSE arena
    (``paged=False``, max_len 8192, max_batch 4) with whole-prompt prefill
    (``prefill_chunk=0``): prompts of 8000, 4096, 2304 and 1000 tokens, 64
    new tokens each, two rounds.  Each round, the flash-attention kernel
@@ -91,7 +102,7 @@ Phases, one JSON line each:
    decoding) and B2 (the first packed launch) are re-checked at those
    inputs as in ``serve``.  TTFT per prompt length, TPOT, decode tokens/s,
    peak memory and a ``profile`` line (``"of": "serve_dense"``).
-7. ``serve_ssm`` — mamba2-2.7b at full width and all 64 layers in bf16
+8. ``serve_ssm`` — mamba2-2.7b at full width and all 64 layers in bf16
    (random seeded weights) on the dense arena (max_len 8448, max_batch 4)
    with whole-prompt prefill: after the 24-token warm-up, prompts of 8192,
    4096, 2048 and 200 tokens, 64 new tokens each, two rounds.  Each round
@@ -101,9 +112,9 @@ Phases, one JSON line each:
    there.  TTFT per prompt length, TPOT, decode tokens/s, weight and state
    bytes, peak memory, a ``profile`` line for a round and one for a
    prefill-only pass with B7's share of its device time.
-8. ``preempt`` — the same model cut to 4 layers, with a pool small enough
+9. ``preempt`` — the same model cut to 4 layers, with a pool small enough
    to force preemptions; every request must finish.
-9. ``parity``  — reduced llama2-7b and qwen3-8b in f32, one engine on
+10. ``parity``  — reduced llama2-7b and qwen3-8b in f32, one engine on
    ``cuda`` (kernels) and one on ``cpu`` (plain versions), same weights,
    f32 KV (with and without a forced preemption) and int8 KV on the paged
    pool, and the dense arena with whole-prompt prefill (a 2100-token
@@ -118,7 +129,7 @@ on the card nothing falls back to it.
 Then one ``{"kernels": [...]}`` line (launches from the serve phase whose
 main path runs the kernel — ``serve_quantized`` for the GEMV and the int4
 decode, whose times sum one layer's seven GEMV calls, ``serve_dense`` for
-B5 and B6, ``serve_ssm`` for B7 — times at its inputs
+B5 and B6, ``serve_ssm`` for B7, ``bench`` for B8 — times at its inputs
 in bf16, ``max_abs_err`` from the f32 check at those inputs and
 ``max_abs_err_bf16`` from the bf16 one), the ``nvidia-smi`` line, and
 as the last line
@@ -539,26 +550,85 @@ def tolerance(torch, name, args, kw, dt):
     most half an ulp, 2^-8 |ref| — so |err| <= 2^-7 |ref| + (2n + 2) 2^-24 A,
     with n = K for B3 (A = |x| @ |w| times the scale) and n = the longest
     length for B4 (A = sum_i p_i |v_i|). B4 keeps p in f32, so no p-rounding
-    term enters. B7, f32 and bf16: ``ssd_tolerance``."""
+    term enters. B7, f32 and bf16: ``ssd_tolerance``. B8, f32 and bf16:
+    both sides sum the K exact products in f32 (bf16 products are exact in
+    f32) and round once to x's dtype, so B3's form with n = K and
+    A = |x| @ |w|, its 2^-7 |ref| term for bf16 only."""
     if name == "ssd_chunk":
         return ssd_tolerance(torch, *args)
+    if name == "matmul" or (name == "gemv" and dt != "float32"):
+        return summation_tolerance(torch, name, args, kw, dt)
     if dt == "float32" or name in V_ARGS:
         if not TOL[dt]["p_abs"]:
             return TOL[dt], None
         plain = ref_of(name)
         return TOL[dt], abs_context(plain, name, args, kw)
     from repro_torch.kernels import ref
-    if name == "gemv":
-        x = args[0]
-        n = x.shape[1]
-        A = x.float().abs() @ gemv_dequantized(*args).abs()
-    else:
-        q, kp, ks, vp, vs, bt, lengths = args
-        n = int(lengths.max())
-        kf, vf = q4_dequantized(torch, q, kp, ks, vp, vs)
-        A = ref.paged_decode_attention_ref(q.float(), kf, vf.abs(), bt,
-                                           lengths)
+    q, kp, ks, vp, vs, bt, lengths = args
+    n = int(lengths.max())
+    kf, vf = q4_dequantized(torch, q, kp, ks, vp, vs)
+    A = ref.paged_decode_attention_ref(q.float(), kf, vf.abs(), bt, lengths)
     return dict(atol=0.0, rtol=2.0 ** -7, p_abs=(2 * n + 2) * 2.0 ** -24), A
+
+
+def summation_tolerance(torch, name, args, kw, dt):
+    """(tolerance, A) of B3 and B8 in either dtype: |err| <= 2^-7 |ref|
+    (bf16 only) + (2K + 2) 2^-24 A, A = |x| @ |w| (B3: w dequantized).
+    Both sides sum the K exact products in f32 and round once to x's dtype
+    (see ``tolerance``); unlike a fixed absolute bound it scales with the
+    magnitudes summed, and it fails a result missing one 32-row K tile
+    (``tests/test_torch_smoke.py``)."""
+    x = args[0]
+    w = gemv_dequantized(*args) if name == "gemv" else args[1].float()
+    A = x.float().abs() @ w.abs()
+    return dict(atol=0.0, rtol=2.0 ** -7 if dt == "bfloat16" else 0.0,
+                p_abs=(2 * x.shape[1] + 2) * 2.0 ** -24), A
+
+
+# ---------------------------------------------------------------------------
+# prefill GEMM, HALO's CiM path (B8)
+# ---------------------------------------------------------------------------
+
+# the (K, N) of the two models' prefill GEMMs for one 2048-token chunk: wq/wo,
+# wk/wv (qwen3-8b: 8 kv heads), the FFN's gate/up and down projections
+# (llama2-7b's 11008 is no multiple of the reference's 512-row K block, so
+# its rows pass bk=256)
+GEMM_SHAPES = {"qwen3-8b": [(4096, 4096), (4096, 1024), (4096, 12288),
+                            (12288, 4096)],
+               "llama2-7b": [(4096, 11008), (11008, 4096)]}
+GEMM_M = 2048
+# shapes that reach B8's edge code: K a multiple of neither 4 nor 8 and
+# N < 128 (element-by-element loads in both dtypes, zero-fill past K,
+# column guards); and K % 32 != 0, N % 128 != 0, M % 128 != 0 with the
+# 16-byte copies on (partial K step, partial tiles), under blocks that the
+# reference's contract admits
+GEMM_EDGES = [((37, 41, 24), {}),
+              ((100, 4104, 1000), {"bn": 200, "bk": 216})]
+
+
+def gemm_inputs(torch, M, K, N, dtype, seed):
+    """x [M, K] standard normal and a fan-in-scaled normal w [K, N], both
+    in ``dtype``."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    w = torch.randn((K, N), device=DEV, generator=g) / K ** 0.5
+    x = torch.randn((M, K), device=DEV, generator=g)
+    return x.to(dtype), w.to(dtype)
+
+
+def gemm_cost(x, w):
+    """Bytes: x and w read once, the product written once; operations
+    2 M K N."""
+    M, K = x.shape
+    N = w.shape[1]
+    nbytes = (M * K + K * N + M * N) * x.element_size()
+    return bound(nbytes, 2.0 * M * K * N, dtype_name(x))
+
+
+def matmul_plain(x, w, **blocks):
+    """``matmul_ref`` under the kernel's call: the block sizes are the
+    reference's contract on the shapes, not part of the function."""
+    from repro_torch.kernels import ref
+    return ref.matmul_ref(x, w)
 
 
 # ---------------------------------------------------------------------------
@@ -797,6 +867,7 @@ def ref_of(name):
             "flash_attention": ref.flash_attention_ref,
             "decode_attention": ref.decode_attention_ref,
             "ssd_chunk": ref.ssd_chunk_ref,
+            "matmul": matmul_plain,
             }[name]
 
 
@@ -813,6 +884,9 @@ def cost_and_library(torch, name, args, kw):
         return dense_decode_cost(*args), dense_decode_library(torch, *args)
     if name == "ssd_chunk":
         return ssd_cost(*args), ssd_library(torch, *args)
+    if name == "matmul":
+        x, w = args
+        return gemm_cost(x, w), lambda: torch.matmul(x, w)
     return q4_cost(*args), q4_library(torch, *args)
 
 
@@ -820,19 +894,22 @@ LIBRARY = {"gemv": "torch.matmul on the weight dequantized to x's dtype "
                    "beforehand (yardstick only)",
            "ssd_chunk": "three batched torch.matmul calls over L, dt x and "
                         "the decay weights made beforehand (yardstick only)",
+           "matmul": "torch.matmul on the same tensors (yardstick only)",
            "paged_decode_attention_q4": "scaled_dot_product_attention on "
                                         "pre-gathered K/V dequantized to "
                                         "q's dtype (yardstick only)"}
 
-def check_kernel(torch, timer, name, args, kw, label, timed=True):
-    """Kernel against its plain version on ``args``; with ``timed``, also
-    the CUDA-event times of kernel, plain version and library call."""
+def check_kernel(torch, timer, name, args, kw, label, timed=True,
+                 bound_of=tolerance):
+    """Kernel against its plain version on ``args`` within
+    ``bound_of(torch, name, args, kw, dtype)``; with ``timed``, also the
+    CUDA-event times of kernel, plain version and library call."""
     kernel, plain = kernel_functions()[name], ref_of(name)
     dt = dtype_name(args[0])
     got = flat(kernel(*args, **kw))
     want = flat(plain(*args, **kw))
     torch.cuda.synchronize()
-    tol, abs_ctx = tolerance(torch, name, args, kw, dt)
+    tol, abs_ctx = bound_of(torch, name, args, kw, dt)
     err, ok, worst = close(torch, got, want, dt, abs_ctx, tol)
     row = dict(name=name, shape=label, dtype=dt, max_abs_err=err, tol=tol,
                worst_element=worst)
@@ -910,7 +987,41 @@ def kernel_phase(torch, timer):
                               **SSD_GEOM)
             check_kernel(torch, timer, "ssd_chunk", args, {},
                          f"mamba2-2.7b nc={nc} Q={Q}")
+        kernel_phase_b8_d64(torch, timer, dtype)
     require_all_agree("kernel")
+
+
+def kernel_phase_b8_d64(torch, timer, dtype):
+    """B8 at the two models' prefill GEMM shapes for a 2048-token chunk
+    (2048 x 4096 x 12288 among them, the benchmark runner's analytic
+    shape), at M = 37 and at the edges (``GEMM_EDGES``); B5 and B2 at head
+    dim 64, the benchmark runner's.  Seeds of their own, so the other
+    checks' inputs stay as they were."""
+    seed = 1000 + 100 * (dtype == torch.bfloat16)
+    for model, shapes in GEMM_SHAPES.items():
+        kw = {"bk": 256} if model == "llama2-7b" else {}
+        for K, N in shapes:
+            seed += 1
+            args = gemm_inputs(torch, GEMM_M, K, N, dtype, seed)
+            check_kernel(torch, timer, "matmul", args, kw,
+                         f"{model} M={GEMM_M} K={K} N={N}")
+    seed += 1
+    args = gemm_inputs(torch, 37, 4096, 4096, dtype, seed)
+    check_kernel(torch, timer, "matmul", args, {}, "M=37 K=4096 N=4096")
+    for (M, K, N), kw in GEMM_EDGES:
+        seed += 1
+        args = gemm_inputs(torch, M, K, N, dtype, seed)
+        check_kernel(torch, timer, "matmul", args, kw,
+                     f"edges M={M} K={K} N={N} {kw}")
+    for H, Hkv, T in ((8, 4, 256), (32, 8, 2560)):
+        seed += 1
+        args, kw = flash_inputs(torch, H, Hkv, 64, 1, T, 0, dtype, seed)
+        check_kernel(torch, timer, "flash_attention", args, kw,
+                     f"D=64 H={H} Hkv={Hkv} T={T}")
+    seed += 1
+    args, kw = prefill_inputs(torch, 8, 4, 64, 512, dtype, seed)
+    check_kernel(torch, timer, "packed_prefill_attention", args, kw,
+                 "D=64 H=8 Hkv=4 4 segments, history<=512")
 
 
 def require_all_agree(phase: str) -> None:
@@ -918,6 +1029,93 @@ def require_all_agree(phase: str) -> None:
     if failed:
         raise AssertionError(f"{phase}: kernels disagree with their plain "
                              "versions:\n  " + "\n  ".join(failed))
+
+
+# ---------------------------------------------------------------------------
+# the benchmark runner
+# ---------------------------------------------------------------------------
+
+def bench_phase(torch, timer):
+    """The port's benchmark runner in process on the card,
+    ``run.main(["--device", "cuda"])``: the HALO analytic model's paper
+    figures and the kernel micro-benchmarks.  Each CSV row is emitted as a
+    JSON line and must be finite.  Each kernel of ``ON_PATH["bench"]``
+    launches as often as the runner's timing makes it (one warm-up call
+    and ``CUDA_REPS`` timed ones per row), every other kernel and every
+    plain version never.  Each kernel is then re-checked at every distinct
+    set of inputs the runner gave it (as the runner ran it, and cast to
+    f32); the kernels line takes each kernel's largest call.  The runner's
+    GEMV weights are standard normal, as the reference's are, not scaled
+    by their fan-in as the kernel phase's: its f32 products reach |ref| ~
+    20, where the fixed 1e-4 of the other f32 checks lies below the
+    rounding of a 4096-term f32 sum taken in another order (~100 ulps).
+    B3 is held there, in f32 too, to its per-element summation bound
+    (``summation_tolerance``), as it is in bf16 and B8 is in both."""
+    import contextlib
+    import io
+    import math
+    from repro_torch.benchmarks import kernel_micro
+    from repro_torch.benchmarks import run as bench_run
+
+    fns = kernel_functions()
+    for fn in fns.values():
+        fn.launches = 0
+    out = io.StringIO()
+    t0 = time.monotonic()
+    with MainPathProbe(torch, 1, None, keep="each shape") as probe, \
+            contextlib.redirect_stdout(out):
+        rc = bench_run.main(["--device", "cuda"])
+    wall_s = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in fns.items()}
+    lines = out.getvalue().splitlines()
+    if rc != 0 or not lines or lines[0] != "name,value,unit,paper":
+        raise AssertionError(f"bench: the runner returned {rc}")
+    rows = []
+    for line in lines[1:]:
+        name, value, unit, paper = line.split(",", 3)
+        rows.append(dict(name=name, value=float(value), unit=unit,
+                         paper=paper))
+        emit("bench", **rows[-1])
+    emit("bench", rows=len(rows), wall_s=wall_s, launches=launches,
+         plain_calls=probe.plain_calls)
+    bad = [r["name"] for r in rows if not math.isfinite(r["value"])]
+    if bad:
+        raise AssertionError(f"bench: rows not finite: {bad}")
+    if not any(r["name"].startswith("kernel.matmul.bf16_") for r in rows):
+        raise AssertionError("bench: no B8 row at the analytic shape")
+    if probe.plain_calls:
+        raise AssertionError(f"bench: plain versions called on the card: "
+                             f"{probe.plain_calls}")
+    # two timed rows each for the GEMV (f32 and int8 weights) and B8 (the
+    # f32 row and the bf16 one at the analytic shape), one for the others
+    reps = 1 + kernel_micro.CUDA_REPS
+    require_launches("bench", launches, {
+        "gemv": 2 * reps, "matmul": 2 * reps, "decode_attention": reps,
+        "flash_attention": reps, "packed_prefill_attention": reps,
+        "paged_decode_attention": 0, "paged_decode_attention_q4": 0,
+        "ssd_chunk": 0})
+    main = {}
+    for name in ON_PATH["bench"]:
+        calls = list(probe.inputs[name].values())
+        if len(calls) != (2 if name in ("gemv", "matmul") else 1):
+            raise AssertionError(f"bench: {name} ran at {len(calls)} sets "
+                                 "of input shapes")
+        bound_of = summation_tolerance if name == "gemv" else tolerance
+        checked = [recheck(torch, timer, name, args, kw, launches[name],
+                           "bench main path, " + shapes_label(args, kw),
+                           bound_of=bound_of)
+                   for args, kw in calls]
+        main[name] = max(checked, key=lambda r: r["bound_ms"])
+    require_all_agree("bench")
+    return main
+
+
+def shapes_label(args, kw):
+    """A kernel call's input shapes and dtypes, and its keywords."""
+    parts = ["None" if t is None else
+             "x".join(map(str, t.shape)) + f" {dtype_name(t)}" for t in args]
+    parts += [f"{k}={v}" for k, v in sorted(kw.items())]
+    return "; ".join(parts)
 
 
 # ---------------------------------------------------------------------------
@@ -935,18 +1133,22 @@ class MainPathProbe:
     last decode step the first layer's paged decode attention launch and
     its ``GEMV_PER_LAYER`` GEMV calls (wq, wk, wv, wo, gate, up, down), and
     of the first decode step with the most requests decoding the first
-    layer's dense decode launch.  The kernels' own ``launches`` counters
-    are untouched by it."""
+    layer's dense decode launch.  With ``keep="each shape"`` it keeps
+    instead a copy of each kernel's first call at every distinct set of
+    input shapes, dtypes and keywords (the benchmark runner's calls).
+    Without an ``engine`` the model entry points are left as they are.
+    The kernels' own ``launches`` counters are untouched by it."""
 
     GEMV_PER_LAYER = 7
 
-    def __init__(self, torch, n_layers: int, engine):
+    def __init__(self, torch, n_layers: int, engine, keep=None):
         self.torch, self.n_layers, self.engine = torch, n_layers, engine
+        self.keep = keep
         self.nan = torch.zeros((), dtype=torch.bool, device=DEV)
         self.steps = {"prefill": 0, "decode": 0}
         self.calls = {name: 0 for name in kernel_functions()}
         self.plain_calls = {}  # plain version -> calls
-        self.inputs = {}       # name -> {call within the layer: (args, kw)}
+        self.inputs = {}       # name -> {call in the layer | shapes: (args, kw)}
         self._rows = 0         # most requests decoding in one step so far
         self._busiest = False  # this decode step has more than any before
 
@@ -954,12 +1156,8 @@ class MainPathProbe:
         from repro_torch.kernels import ops
         from repro_torch.serving import engine as eng
         from repro_torch.serving.types import RequestState
-        self._saved = [(eng, "forward", eng.forward),
-                       (eng, "forward_chunk_packed", eng.forward_chunk_packed),
-                       (eng, "prefill_into_arena", eng.prefill_into_arena),
-                       (ops, "_da", ops._da), (ops, "_fa", ops._fa),
-                       (ops, "_gemv", ops._gemv), (ops, "_ssd", ops._ssd),
-                       (ops, "_ref", ops._ref)]
+        self._saved = [(ops, attr, getattr(ops, attr)) for attr in
+                       ("_da", "_fa", "_gemv", "_ssd", "_gemm", "_ref")]
 
         def model(fn, step):
             def wrapped(*a, **k):
@@ -976,18 +1174,28 @@ class MainPathProbe:
             return wrapped
 
         def kernel(fn, name, keep, per_layer=1):
-            # keep: "first" launch (copied), "last" (references), or the
-            # "busiest" decode step's (copied)
+            # keep: "first" launch (copied), "last" (references), the
+            # "busiest" decode step's (copied), or the first at "each
+            # shape" (copied; overrides the others)
+            keep = self.keep or keep
+
             def wrapped(*a, **k):
                 i = self.calls[name]
                 self.calls[name] += 1
-                j = i % (self.n_layers * per_layer)
                 kept = self.inputs.setdefault(name, {})
-                if j < per_layer and {"first": j not in kept, "last": True,
-                                      "busiest": self._busiest}[keep]:
+                if keep == "each shape":
+                    j = (tuple(x if x is None else (tuple(x.shape), x.dtype)
+                               for x in a), tuple(sorted(k.items())))
+                    take = j not in kept
+                else:
+                    j = i % (self.n_layers * per_layer)
+                    take = j < per_layer and {
+                        "first": j not in kept, "last": True,
+                        "busiest": self._busiest}[keep]
+                if take:
                     clone = keep != "last"
-                    kept[j] = (tuple(x.clone() if clone else x for x in a),
-                               dict(k))
+                    kept[j] = (tuple(x.clone() if clone and x is not None
+                                     else x for x in a), dict(k))
                 return fn(*a, **k)
             return wrapped
 
@@ -998,9 +1206,14 @@ class MainPathProbe:
                 return fn(*a, **k)
             return wrapped
 
-        eng.forward = model(eng.forward, "decode")
-        eng.forward_chunk_packed = model(eng.forward_chunk_packed, "prefill")
-        eng.prefill_into_arena = model(eng.prefill_into_arena, "prefill")
+        if self.engine is not None:
+            self._saved += [(eng, attr, getattr(eng, attr)) for attr in
+                            ("forward", "forward_chunk_packed",
+                             "prefill_into_arena")]
+            eng.forward = model(eng.forward, "decode")
+            eng.forward_chunk_packed = model(eng.forward_chunk_packed,
+                                             "prefill")
+            eng.prefill_into_arena = model(eng.prefill_into_arena, "prefill")
         # the dispatcher reaches the kernel wrappers and the plain versions
         # through its module handles; stand-ins there leave the wrappers
         # (and their counts) untouched.  Paged decode: the last step's pool
@@ -1027,6 +1240,8 @@ class MainPathProbe:
             ops._gemv.gemv, "gemv", "last", self.GEMV_PER_LAYER))
         ops._ssd = types.SimpleNamespace(ssd_chunk=kernel(
             ops._ssd.ssd_chunk, "ssd_chunk", "first"))
+        ops._gemm = types.SimpleNamespace(matmul=kernel(
+            ops._gemm.matmul, "matmul", "first"))
         ops._ref = types.SimpleNamespace(**{
             name: plain(getattr(ops._ref, name)) for name in dir(ops._ref)
             if name.endswith("_ref")})
@@ -1041,6 +1256,7 @@ class MainPathProbe:
 def kernel_functions():
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm_cim as gm
     from repro_torch.kernels import gemv_cid as gc
     from repro_torch.kernels import ssd_scan as ss
     return {"paged_decode_attention": da.paged_decode_attention,
@@ -1049,7 +1265,8 @@ def kernel_functions():
             "paged_decode_attention_q4": da.paged_decode_attention_q4,
             "flash_attention": fa.flash_attention,
             "decode_attention": da.decode_attention,
-            "ssd_chunk": ss.ssd_chunk}
+            "ssd_chunk": ss.ssd_chunk,
+            "matmul": gm.matmul}
 
 
 def make_engine(torch, cfg, params, device, **sc_kw):
@@ -1130,14 +1347,17 @@ def require_launches(phase, launches, expect):
                                  f"times, expected {n}")
 
 
-# the kernels each serve phase's main path runs
+# the kernels each phase's main path runs
 ON_PATH = {"serve": ("paged_decode_attention", "packed_prefill_attention"),
            "serve_quantized": ("gemv", "paged_decode_attention_q4",
                                "packed_prefill_attention"),
            "serve_dense": ("flash_attention", "decode_attention"),
            "serve_dense_packed": ("packed_prefill_attention",
                                   "decode_attention"),
-           "serve_ssm": ("ssd_chunk",)}
+           "serve_ssm": ("ssd_chunk",),
+           # the benchmark runner's kernel_micro suite
+           "bench": ("gemv", "matmul", "decode_attention", "flash_attention",
+                     "packed_prefill_attention")}
 
 
 def free_device_memory(torch):
@@ -1184,14 +1404,18 @@ def serve_row(torch, cfg, prompts, rounds, probe, launches, log, **extra):
                 **extra)
 
 
-def recheck(torch, timer, name, args, kw, launches, label):
+def recheck(torch, timer, name, args, kw, launches, label,
+            bound_of=tolerance):
     """A kernel at inputs the main path gave it: checked and timed in the
     path's dtype, and checked again on the inputs cast to f32."""
-    row = check_kernel(torch, timer, name, args, kw, label)
+    row = check_kernel(torch, timer, name, args, kw, label,
+                       bound_of=bound_of)
     row["launches"] = launches
-    f32 = tuple(x.float() if x.is_floating_point() else x for x in args)
+    f32 = tuple(x.float() if x is not None and x.is_floating_point() else x
+                for x in args)
     row["f32"] = check_kernel(torch, timer, name, f32, kw,
-                              label + ", cast to f32", timed=False)
+                              label + ", cast to f32", timed=False,
+                              bound_of=bound_of)
     return row
 
 
@@ -1218,7 +1442,7 @@ def serve_phase(torch, timer):
     require_launches("serve", launches, {
         "packed_prefill_attention": L * probe.steps["prefill"],
         "paged_decode_attention": L * probe.steps["decode"],
-        "gemv": 0, "paged_decode_attention_q4": 0})
+        "gemv": 0, "paged_decode_attention_q4": 0, "matmul": 0})
     main = {name: recheck(torch, timer, name, *probe.inputs[name][0],
                           launches[name], "serve main path")
             for name in ON_PATH["serve"]}
@@ -1262,7 +1486,7 @@ def serve_quantized_phase(torch, timer):
         "gemv": MainPathProbe.GEMV_PER_LAYER * L * probe.steps["decode"],
         "paged_decode_attention_q4": L * probe.steps["decode"],
         "packed_prefill_attention": L * probe.steps["prefill"],
-        "paged_decode_attention": 0})
+        "paged_decode_attention": 0, "matmul": 0})
     main = {name: recheck(torch, timer, name, *probe.inputs[name][0],
                           launches[name], "serve_quantized main path")
             for name in ("paged_decode_attention_q4",
@@ -1754,6 +1978,7 @@ def main() -> int:
             return None
 
     run("kernel", kernel_phase, torch, timer)
+    main_bench = run("bench", bench_phase, torch, timer)
     main_path = run("serve", serve_phase, torch, timer)
     main_quantized = run("serve_quantized", serve_quantized_phase, torch,
                          timer)
@@ -1786,7 +2011,10 @@ def main() -> int:
                    "src/repro/kernels/decode_attention.py:96", main_dense),
                "ssd_chunk": (
                    "src/repro_torch/csrc/ssd_chunk.cu",
-                   "src/repro/kernels/ssd_scan.py:64", main_ssm)}
+                   "src/repro/kernels/ssd_scan.py:64", main_ssm),
+               "matmul": (
+                   "src/repro_torch/csrc/gemm_cim.cu",
+                   "src/repro/kernels/gemm_cim.py:39", main_bench)}
     kernels = []
     for kname, (source, replaces, main) in sources.items():
         r = main[kname]

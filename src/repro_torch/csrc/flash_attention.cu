@@ -93,10 +93,13 @@ template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* out,
                      int B, int T_len, int H, int Hkv, int causal, int window,
                      float scale, cudaStream_t st) {
-  // the head dims of the configurations served: 16 (reduced), 128 (full)
+  // the head dims of the configurations served: 16 (reduced), 128 (full);
+  // 64: the benchmark runner's kernel rows (benchmarks/kernel_micro.py)
   switch (D) {
     case 16:
       return launch<T, 16>(q, k, v, out, B, T_len, H, Hkv, causal, window, scale, st);
+    case 64:
+      return launch<T, 64>(q, k, v, out, B, T_len, H, Hkv, causal, window, scale, st);
     case 128:
       return launch<T, 128>(q, k, v, out, B, T_len, H, Hkv, causal, window, scale, st);
     default:
@@ -107,7 +110,7 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* o
 }  // namespace
 
 // q [B,H,T,D]; k/v [B,Hkv,T,D]; out [B,H,T,D]; causal 0/1; window 0 (full)
-// or the sliding window.  G = H / Hkv must divide 64; D 16 or 128.  All
+// or the sliding window.  G = H / Hkv must divide 64; D 16, 64 or 128.  All
 // contiguous, all on the stream's device.  Returns the CUDA error code of
 // the launch (0 on success).
 extern "C" int flash_attention(int dtype, const void* q, const void* k, const void* v,

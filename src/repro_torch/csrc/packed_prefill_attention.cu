@@ -156,9 +156,11 @@ cudaError_t launch_d(int D, const void* q, const void* k_new, const void* v_new,
     return launch<T, DIM>(q, k_new, v_new, k_pages, v_pages, bt, starts, offsets, \
                           lengths, out, T_len, H, Hkv, N, n_pages, P, W, ring,    \
                           window, scale, st);
-  // the head dims of the configurations served: 16 (reduced), 128 (full)
+  // the head dims of the configurations served: 16 (reduced), 128 (full);
+  // 64: the benchmark runner's kernel rows (benchmarks/kernel_micro.py)
   switch (D) {
     PACKED_PREFILL_CASE(16)
+    PACKED_PREFILL_CASE(64)
     PACKED_PREFILL_CASE(128)
     default:
       return cudaErrorInvalidValue;
@@ -170,7 +172,7 @@ cudaError_t launch_d(int D, const void* q, const void* k_new, const void* v_new,
 
 // q [T,H,D]; k_new/v_new [T,Hkv,D]; k_pages/v_pages [n_pages,P,Hkv,D];
 // bt [N,W] int32; starts/offsets/lengths [N] int32; out [T,H,D], zeroed by
-// the caller.  G = H / Hkv must divide 64; D 16 or 128.  All
+// the caller.  G = H / Hkv must divide 64; D 16, 64 or 128.  All
 // contiguous, all on the stream's device.  Returns the CUDA error code of
 // the launch (0 on success).
 extern "C" int packed_prefill_attention(int dtype, const void* q, const void* k_new,

@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 KERNELS = ("paged_decode_attention", "packed_prefill_attention", "gemv_int8",
            "paged_decode_attention_q4", "flash_attention", "decode_attention",
-           "ssd_chunk")
+           "ssd_chunk", "gemm_cim")
 
 # torch dtype -> the dtype code of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -49,6 +49,7 @@ SIGNATURES = {
     "flash_attention": [I, P, P, P, P, I, I, I, I, I, I, I, F, P],
     "decode_attention": [I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
     "ssd_chunk": [I, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    "gemm_cim": [I, P, P, P, I, I, I, P],
 }
 
 _lock = threading.Lock()

@@ -12,9 +12,11 @@ from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import gemm_cim as _gemm
 from repro_torch.kernels import gemv_cid as _gemv
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels.gemm_cim import check_blocks as _check_blocks
 
 
 def _on_cpu(t) -> bool:
@@ -23,6 +25,17 @@ def _on_cpu(t) -> bool:
     if t.device.type == "cuda":
         return False
     raise ValueError(f"no kernel for device {t.device}")
+
+
+def matmul(x, w, *, bm: int = 256, bn: int = 256, bk: int = 512):
+    """Prefill GEMM (CiM path): x [M,K] @ w [K,N], f32 accumulation, in
+    x's dtype.  The reference's block contract holds on every device: each
+    block is clipped to its dim and must divide it (``ValueError``), checked
+    here for the plain version and by the kernel's wrapper on CUDA."""
+    if _on_cpu(x):
+        _check_blocks(x, w, bm, bn, bk)
+        return _ref.matmul_ref(x, w)
+    return _gemm.matmul(x, w, bm=bm, bn=bn, bk=bk)
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):

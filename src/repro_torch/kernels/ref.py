@@ -17,6 +17,12 @@ NEG_INF = -1e30
 _FLASH_REF_BQ = 256
 
 
+def matmul_ref(x, w):
+    """Plain version of ``matmul``: x [M,K] @ w [K,N] in f32, in x's
+    dtype."""
+    return (x.float() @ w.float()).to(x.dtype)
+
+
 def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0):
     """Plain version of ``flash_attention``: q [B,H,T,D], k/v [B,Hkv,T,D]
     (GQA), scores in f32 with scale 1/sqrt(D), masked (causal, and a sliding

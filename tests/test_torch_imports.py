@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package ``repro`` —
-the card's machine has neither.  Checked on the source with ``ast``, so a
+``chip_smoke.py`` imports JAX, anything of the JAX package ``repro`` or the
+reference's top-level ``benchmarks`` folder (which imports both) — the
+card's machine has neither.  Checked on the source with ``ast``, so a
 lazy import inside a function counts too."""
 
 import ast
@@ -15,7 +16,7 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _imports(path: Path):
@@ -39,9 +40,12 @@ def test_guard_sees_what_it_must_refuse(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import jax.numpy as jnp\nfrom repro.configs import x\n"
                    "def f():\n    import repro.kernels\n"
-                   "from repro_torch import y\nimport reprox\n")
-    names = [n for _, n in _imports(src) if _forbidden(n)]
-    assert names == ["jax.numpy", "repro.configs", "repro.kernels"]
+                   "from repro_torch import y\nimport reprox\n"
+                   "from benchmarks import kernel_micro\n"
+                   "from repro_torch.benchmarks import run\n")
+    names = sorted(n for _, n in _imports(src) if _forbidden(n))
+    assert names == ["benchmarks", "jax.numpy", "repro.configs",
+                     "repro.kernels"]
     assert len(FILES) > 20
 
 
@@ -65,4 +69,12 @@ def test_guard_covers_the_ssm_path():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     for mod in ("kernels/ssd_scan.py", "models/ssm.py",
                 "configs/mamba2_2p7b.py", "models/convert.py"):
+        assert f"src/repro_torch/{mod}" in names
+
+
+def test_guard_covers_the_benchmark_path():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in ("kernels/gemm_cim.py", "core/scheduler.py", "core/opgraph.py",
+                "benchmarks/run.py", "benchmarks/kernel_micro.py",
+                "benchmarks/paper_figs.py"):
         assert f"src/repro_torch/{mod}" in names

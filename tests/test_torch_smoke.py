@@ -196,6 +196,36 @@ def test_quantized_bf16_tolerance_fails_a_dropped_tile(monkeypatch, name):
     assert not chip_smoke.close(torch, got, want, "bfloat16", A, tol)[1]
 
 
+@pytest.mark.parametrize("quantized", [False, True])
+def test_gemv_f32_summation_bound_fails_a_dropped_k_tile(quantized):
+    """The bound the ``bench`` phase holds the f32 GEMV to, at the benchmark
+    runner's scale (x and w standard normal, K = 4096): it passes the
+    product summed in float64 and rounded once to f32, and fails a result
+    that left out a 32-row tile of K."""
+    from repro_torch.kernels import ref
+    from repro_torch.serving.quantized_weights import quantize_weight
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((1, 4096), generator=g)
+    w = torch.randn((4096, 512), generator=g)
+    if quantized:
+        wq = quantize_weight(w)
+        args = (x, wq["q"], wq["scale"])
+    else:
+        args = (x, w, None)
+    want = ref.gemv_ref(*args)
+    f64 = x.double() @ args[1].double()
+    if quantized:   # the scale applies to the accumulator, as in the kernel
+        f64 = f64 * args[2].double()
+    f64 = f64.float()
+    dropped = x.clone()
+    dropped[:, 2048:2080] = 0
+    tol, A = chip_smoke.summation_tolerance(torch, "gemv", args, {},
+                                            "float32")
+    assert chip_smoke.close(torch, f64, want, "float32", A, tol)[1]
+    assert not chip_smoke.close(torch, ref.gemv_ref(dropped, *args[1:]),
+                                want, "float32", A, tol)[1]
+
+
 def test_flash_bound_counts_visible_pairs(monkeypatch):
     """Operations: 4 B H D per query-key pair the causal (and windowed)
     mask lets through; bytes: q, k and v read and the output written."""
@@ -356,3 +386,41 @@ def test_ssd_tolerance_fails_a_dropped_row_tile(monkeypatch, dtype):
     y[1, 0:4, 64:128] = 0
     assert not chip_smoke.close(torch, chip_smoke.flat((y, want[1])),
                                 chip_smoke.flat(want), "float32", A, tol)[1]
+
+
+def test_gemm_bound_counts_operations(monkeypatch):
+    """B8: bytes are x and w read once and the product written once,
+    operations 2 M K N; at 2048 x 4096 x 12288 the operations bind, 0.208 ms
+    in bf16 and 3.08 ms at the f32 peak; at M = 37 the weight bytes do."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    for (M, K, N), dtype, want, by in (
+            ((2048, 4096, 12288), torch.bfloat16, 0.208, "operations"),
+            ((2048, 4096, 12288), torch.float32, 3.08, "operations"),
+            ((37, 4096, 4096), torch.bfloat16, 0.0102, "bytes")):
+        x = torch.zeros((M, K), dtype=dtype)
+        w = torch.zeros((K, N), dtype=dtype)
+        nbytes = (M * K + K * N + M * N) * x.element_size()
+        t_ops = 2 * M * K * N / chip_smoke.PEAK_FLOPS[str(dtype)[6:]] * 1e3
+        ms, got_by = chip_smoke.gemm_cost(x, w)
+        assert ms == pytest.approx(max(
+            t_ops, nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3))
+        assert ms == pytest.approx(want, rel=0.01) and got_by == by
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_tolerance_fails_a_dropped_k_tile(monkeypatch, dtype):
+    """B8's bound passes the product summed in float64 and rounded once to
+    x's dtype, and fails one that left out a 32-row tile of K (K = 4096),
+    as B3's does."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    from repro_torch.kernels import ref
+    x, w = chip_smoke.gemm_inputs(torch, 64, 4096, 256, dtype, 3)
+    want = ref.matmul_ref(x, w)
+    f64 = (x.double() @ w.double()).to(dtype)
+    dropped = x.clone()
+    dropped[:, 1024:1056] = 0
+    dt = chip_smoke.dtype_name(x)
+    tol, A = chip_smoke.tolerance(torch, "matmul", (x, w), {}, dt)
+    assert chip_smoke.close(torch, f64, want, dt, A, tol)[1]
+    assert not chip_smoke.close(torch, ref.matmul_ref(dropped, w), want, dt,
+                                A, tol)[1]
