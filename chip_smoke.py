@@ -10,7 +10,10 @@ Phases, one JSON line each:
 1. ``device``  — the card's name, compute capability (must be 9.0) and the
    ``nvidia-smi`` name / power limit line.
 2. ``build``   — every kernel compiled from ``src/repro_torch/csrc`` by
-   ``nvcc`` (one process per source, all started together), with seconds.
+   ``nvcc`` (one process per source, all started together), with seconds,
+   and the registers, stack and spill bytes ``-Xptxas -v`` reported for
+   every kernel of B5's and B2's sources in that build; the tensor-core
+   kernels may not spill.
 3. ``kernel``  — each kernel against its plain version on the card, per
    dtype and shape set: qwen3-8b (H=32, Hkv=8, D=128) and llama2-7b (H=32,
    Hkv=32) geometry, page size 16, contexts 512 and 4096; paged decode
@@ -28,7 +31,17 @@ Phases, one JSON line each:
    (dt and A f32, made as ``ssm_prefill`` makes them); the prefill GEMM
    (B8) at M = 2048 and every (K, N) of the two models' projections
    (2048 x 4096 x 12288 among them) and at M = 37; B5 and B2 at head dim
-   64, the benchmark runner's.
+   64, the benchmark runner's; B2 over a sliding-window pool (window 1000,
+   ring 1000 < offset: the history has wrapped) at both geometries in f32
+   and bf16; and in bf16 B5 at T = 4000 with window 1000 (cutting key
+   tiles) at both geometries, B2 over pages of 12 tokens, and B5 and B2
+   at head dim 16.  B5 and B2 have two routes (bf16 at head dim 64 or 128,
+   and pages of a multiple of 8 tokens, on the tensor cores; the rest on
+   the CUDA-core tile), chosen by the wrapper and passed to the C entry
+   point: every check of theirs must launch only the route its inputs
+   name, and each entry point must refuse a route its inputs cannot take
+   (``check_route_refusals``: f32 or head dim 16 on the tensor cores, B5
+   in bf16 at 128 on the tile, B2 over pages of 12 on the tensor cores).
    Tolerances: B7, whatever the input dtype, the per-element worst-case
    bound of f32 arithmetic of ``ssd_tolerance``; otherwise
    f32 |err| <= 1e-4; bf16 (see ``tolerance``) for the float
@@ -124,7 +137,10 @@ Phases, one JSON line each:
    top-2 logit margin, recorded as it served, is at most 1e-3.
 
 In every serve phase each kernel's plain version must be called 0 times:
-on the card nothing falls back to it.
+on the card nothing falls back to it.  B5 and B2 count their launches by
+route: ``serve``, ``serve_quantized`` and both ``serve_dense`` rounds (bf16)
+must launch only their tensor-core route, ``parity`` (f32) and ``bench``
+(whose kernel rows draw f32 inputs) only the CUDA-core tile.
 
 Then one ``{"kernels": [...]}`` line (launches from the serve phase whose
 main path runs the kernel — ``serve_quantized`` for the GEMV and the int4
@@ -140,6 +156,7 @@ or without the repository's ``src/`` beside it, the script exits non-zero.
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import gc
 import json
@@ -330,12 +347,13 @@ def decode_library(torch, q, k_pages, v_pages, bt, lengths):
 # packed prefill attention (B2)
 # ---------------------------------------------------------------------------
 
-def prefill_inputs(torch, H, Hkv, D, ctx, dtype, seed):
+def prefill_inputs(torch, H, Hkv, D, ctx, dtype, seed, page=PAGE):
     """A pack_align=8 stream of four segments — lengths 203, 77, 130, 45 at
     8-aligned starts, so no segment is aligned to a 16- or 64-row tile —
     with histories of ctx, ctx/2+5, 61 and 0 tokens, one pad segment
     (start == T, all-sentinel table row) and 16 stream rows past the last
-    segment.  History slots a segment has not written yet are NaN."""
+    segment, over pages of ``page`` tokens.  History slots a segment has
+    not written yet are NaN."""
     g = torch.Generator(device=DEV).manual_seed(seed)
     lens = [203, 77, 130, 45, 0]
     offs = [ctx, ctx // 2 + 5, 61, 0, 0]
@@ -345,20 +363,67 @@ def prefill_inputs(torch, H, Hkv, D, ctx, dtype, seed):
         cur = -(-(cur + n) // 8) * 8
     T = cur + 16
     starts.append(T)
-    W = max(-(-(o + n) // PAGE) for o, n in zip(offs, lens))
-    n_pages = sum(-(-(o + n) // PAGE) for o, n in zip(offs, lens)) + 1
+    W = max(-(-(o + n) // page) for o, n in zip(offs, lens))
+    n_pages = sum(-(-(o + n) // page) for o, n in zip(offs, lens)) + 1
+    perm = torch.randperm(n_pages - 1, device=DEV, generator=g).tolist()
+    bt = torch.full((len(lens), W), n_pages, dtype=torch.int32)
+    k = torch.randn((n_pages, page, Hkv, D), device=DEV, generator=g)
+    v = torch.randn((n_pages, page, Hkv, D), device=DEV, generator=g)
+    k[n_pages - 1] = float("nan")
+    v[n_pages - 1] = float("nan")
+    for s, (o, n) in enumerate(zip(offs, lens)):
+        for i in range(-(-(o + n) // page)):
+            pg = perm.pop()
+            bt[s, i] = pg
+            lo = max(o - i * page, 0)
+            if lo < page:                  # this chunk's own slots: unwritten
+                k[pg, lo:] = float("nan")
+                v[pg, lo:] = float("nan")
+    q = torch.randn((T, H, D), device=DEV, generator=g)
+    kn = torch.randn((T, Hkv, D), device=DEV, generator=g)
+    vn = torch.randn((T, Hkv, D), device=DEV, generator=g)
+    i32 = dict(dtype=torch.int32, device=DEV)
+    return ((q.to(dtype), kn.to(dtype), vn.to(dtype), k.to(dtype),
+             v.to(dtype), bt.to(DEV), torch.tensor(starts, **i32),
+             torch.tensor(offs, **i32), torch.tensor(lens, **i32)),
+            dict(ring=n_pages * page, window=0))
+
+
+def ring_prefill_inputs(torch, H, Hkv, D, dtype, seed, window=1000):
+    """Packed prefill over a sliding-window pool, as serving lays it out:
+    ring = min(window, capacity) = 1000 slots, so a block-table row holds
+    ceil(1000 / 16) = 63 pages, the last one half past the ring.  The
+    stream of ``prefill_inputs`` (lengths 203, 77, 130, 45 at 8-aligned
+    starts, a pad segment, 16 rows past the last segment) with histories of
+    3000 and 1500 tokens, which have wrapped (every slot written, the
+    oldest positions outside the first queries' window), 700 and 0.  Pages
+    past the slots a segment reaches are sentinels; slots not written yet,
+    and those past the ring on a row's last page, hold NaN."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    ring = window
+    lens = [203, 77, 130, 45, 0]
+    offs = [3000, 1500, 700, 0, 0]
+    starts, cur = [], 0
+    for n in lens[:-1]:
+        starts.append(cur)
+        cur = -(-(cur + n) // 8) * 8
+    T = cur + 16
+    starts.append(T)
+    W = -(-ring // PAGE)
+    need = [-(-min(o + n, ring) // PAGE) for o, n in zip(offs, lens)]
+    n_pages = sum(need) + 1
     perm = torch.randperm(n_pages - 1, device=DEV, generator=g).tolist()
     bt = torch.full((len(lens), W), n_pages, dtype=torch.int32)
     k = torch.randn((n_pages, PAGE, Hkv, D), device=DEV, generator=g)
     v = torch.randn((n_pages, PAGE, Hkv, D), device=DEV, generator=g)
     k[n_pages - 1] = float("nan")
     v[n_pages - 1] = float("nan")
-    for s, (o, n) in enumerate(zip(offs, lens)):
-        for i in range(-(-(o + n) // PAGE)):
+    for s, o in enumerate(offs):
+        for i in range(need[s]):
             page = perm.pop()
             bt[s, i] = page
-            lo = max(o - i * PAGE, 0)
-            if lo < PAGE:                  # this chunk's own slots: unwritten
+            lo = max(min(o, ring) - i * PAGE, 0)
+            if lo < PAGE:                  # slots not written (yet)
                 k[page, lo:] = float("nan")
                 v[page, lo:] = float("nan")
     q = torch.randn((T, H, D), device=DEV, generator=g)
@@ -368,14 +433,32 @@ def prefill_inputs(torch, H, Hkv, D, ctx, dtype, seed):
     return ((q.to(dtype), kn.to(dtype), vn.to(dtype), k.to(dtype),
              v.to(dtype), bt.to(DEV), torch.tensor(starts, **i32),
              torch.tensor(offs, **i32), torch.tensor(lens, **i32)),
-            dict(ring=n_pages * PAGE, window=0))
+            dict(ring=ring, window=window))
 
 
 def _history_slots(bt, off, ring, n_pages, P):
     """Logical history slots a segment sees: s < min(off, ring, W*P) on an
-    allocated page (window 0: every written position precedes the chunk)."""
+    allocated page."""
     n = min(off, ring, len(bt) * P)
     return [s for s in range(n) if bt[s // P] < n_pages]
+
+
+def _slot_position(s, off, ring):
+    """The position ring slot s holds before a chunk at ``off``."""
+    return off - 1 - (off - 1 - s) % ring
+
+
+def _visible_pairs(n, off, hist, window):
+    """(query, key) pairs of an n-token chunk at ``off`` over history
+    positions ``hist`` and its own causal keys, with a window when > 0;
+    and the history positions some query sees (all when window is 0)."""
+    if window <= 0:
+        return n * len(hist) + n * (n + 1) // 2, len(hist)
+    hist = sorted(hist)
+    pairs = sum(len(hist) - bisect.bisect_right(hist, off + i - window)
+                + min(i + 1, window) for i in range(n))
+    # the first query sees the most history: every later one sees less
+    return pairs, len(hist) - bisect.bisect_right(hist, off - window)
 
 
 def prefill_cost(args, kw):
@@ -389,10 +472,12 @@ def prefill_cost(args, kw):
     for n in range(len(lens)):
         if lens[n] <= 0 or starts[n] >= T:
             continue
-        h = len(_history_slots(bt[n], offs[n], kw["ring"], n_pages, P))
+        pos = [_slot_position(s, offs[n], kw["ring"]) for s in
+               _history_slots(bt[n], offs[n], kw["ring"], n_pages, P)]
+        p, h = _visible_pairs(lens[n], offs[n], pos, kw["window"])
         toks += lens[n]
         hist += h
-        pairs += lens[n] * h + lens[n] * (lens[n] + 1) // 2
+        pairs += p
     nbytes = (toks * (2 * H + 2 * Hkv) * D * el + 2 * hist * Hkv * D * el
               + 4 * (len(lens) * (3 + len(bt[0]))))
     return bound(nbytes, 4.0 * pairs * H * D, dtype_name(q))
@@ -401,20 +486,23 @@ def prefill_cost(args, kw):
 def prefill_library(torch, args, kw):
     """scaled_dot_product_attention over the pre-gathered dense K/V: every
     segment's visible history followed by the stream, with a boolean mask
-    for segment, causality and history visibility (one call)."""
+    for segment, causality, history visibility and the window (one
+    call)."""
     import torch.nn.functional as F
     q, kn, vn, k_pages, v_pages, bt, starts, offs, lens = args
     T, H, D = q.shape
     n_pages, P, Hkv, _ = k_pages.shape
     G = H // Hkv
-    keys, vals, cols = [], [], []
+    keys, vals, cols, hpos = [], [], [], []
     seg = torch.full((T,), -1, dtype=torch.long, device=q.device)
+    qpos = torch.zeros((T,), dtype=torch.long, device=q.device)
     btl = bt.cpu().tolist()
     for n, (st, off, ln) in enumerate(zip(starts.tolist(), offs.tolist(),
                                           lens.tolist())):
         if ln <= 0 or st >= T:
             continue
         seg[st:st + ln] = n
+        qpos[st:st + ln] = torch.arange(off, off + ln, device=q.device)
         slots = _history_slots(btl[n], off, kw["ring"], n_pages, P)
         if slots:
             s = torch.tensor(slots, device=q.device)
@@ -422,6 +510,8 @@ def prefill_library(torch, args, kw):
             keys.append(k_pages[pg, s % P])
             vals.append(v_pages[pg, s % P])
             cols.append(torch.full((len(slots),), n, device=q.device))
+            hpos.append(torch.tensor([_slot_position(x, off, kw["ring"])
+                                      for x in slots], device=q.device))
     keys.append(kn)
     vals.append(vn)
     n_hist = sum(c.numel() for c in cols)
@@ -432,6 +522,10 @@ def prefill_library(torch, args, kw):
         torch.zeros((T, 0), dtype=torch.bool, device=q.device)
     self_ok = ((seg[:, None] == seg[None]) & (seg[:, None] >= 0)
                & (t[None] <= t[:, None]))
+    if kw["window"] > 0:
+        if cols:
+            hist_ok &= qpos[:, None] - torch.cat(hpos)[None] < kw["window"]
+        self_ok &= t[:, None] - t[None] < kw["window"]
     mask = torch.cat([hist_ok, self_ok], dim=1)[None, None]
     assert mask.shape[-1] == n_hist + T
     qq = q.permute(1, 0, 2)[None].contiguous()
@@ -906,6 +1000,7 @@ def check_kernel(torch, timer, name, args, kw, label, timed=True,
     CUDA-event times of kernel, plain version and library call."""
     kernel, plain = kernel_functions()[name], ref_of(name)
     dt = dtype_name(args[0])
+    before = route_counts().get(name)
     got = flat(kernel(*args, **kw))
     want = flat(plain(*args, **kw))
     torch.cuda.synchronize()
@@ -923,17 +1018,30 @@ def check_kernel(torch, timer, name, args, kw, label, timed=True,
                    library=LIBRARY.get(
                        name, "scaled_dot_product_attention on pre-gathered "
                              "dense K/V (yardstick only)"))
+    if before is not None:
+        # every launch of this check took the route its inputs name
+        from repro_torch.kernels.flash_attention import route
+        pages = args[3].shape[1] if name == "packed_prefill_attention" else 8
+        path = route(args[0].dtype, args[0].shape[-1], pages)
+        took = {r: n - before[r] for r, n in route_counts()[name].items()}
+        row["route"] = path
+        if not took[path] or any(n for r, n in took.items() if r != path):
+            ok = False
+            err = f"{err}, routes {took}, expected {path}"
     emit("kernel", **row, ok=ok)
     if not ok:
         FAILED.append(f"{name} [{label}, {dt}]: max |err| {err}")
     return row
 
 
+# (H, Hkv, D) of the two served models
+GEOMS = {"qwen3-8b": (32, 8, 128), "llama2-7b": (32, 32, 128)}
+
+
 def kernel_phase(torch, timer):
-    geoms = {"qwen3-8b": (32, 8, 128), "llama2-7b": (32, 32, 128)}
     seed = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for model, (H, Hkv, D) in geoms.items():
+        for model, (H, Hkv, D) in GEOMS.items():
             for ctx in (512, 4096):
                 for B in (1, 4):
                     seed += 1
@@ -988,6 +1096,7 @@ def kernel_phase(torch, timer):
             check_kernel(torch, timer, "ssd_chunk", args, {},
                          f"mamba2-2.7b nc={nc} Q={Q}")
         kernel_phase_b8_d64(torch, timer, dtype)
+        kernel_phase_routes(torch, timer, dtype)
     require_all_agree("kernel")
 
 
@@ -1022,6 +1131,83 @@ def kernel_phase_b8_d64(torch, timer, dtype):
     args, kw = prefill_inputs(torch, 8, 4, 64, 512, dtype, seed)
     check_kernel(torch, timer, "packed_prefill_attention", args, kw,
                  "D=64 H=8 Hkv=4 4 segments, history<=512")
+
+
+def kernel_phase_routes(torch, timer, dtype):
+    """What B5's and B2's two routes need beyond the cases above: B2 over a
+    sliding-window pool whose history has wrapped (ring < offset), at both
+    models' geometry, in either dtype; in bf16, B5 at a T that is no
+    multiple of 64 with a window that cuts key tiles (T = 4000, window
+    1000), at both geometries, and on the CUDA-core tile B2 over pages of
+    12 tokens and B5 and B2 at head dim 16 (the reduced configurations').
+    Seeds of their own, so the other checks' inputs stay as they were."""
+    seed = 2000 + 100 * (dtype == torch.bfloat16)
+    for model, (H, Hkv, D) in GEOMS.items():
+        seed += 1
+        args, kw = ring_prefill_inputs(torch, H, Hkv, D, dtype, seed)
+        check_kernel(torch, timer, "packed_prefill_attention", args, kw,
+                     f"{model} sliding-window pool, ring={kw['ring']} < "
+                     "offset")
+    if dtype != torch.bfloat16:
+        return
+    for model, (H, Hkv, D) in GEOMS.items():
+        seed += 1
+        args, kw = flash_inputs(torch, H, Hkv, D, 1, 4000, 1000, dtype, seed)
+        check_kernel(torch, timer, "flash_attention", args, kw,
+                     f"{model} B=1 T=4000 window=1000")
+    # pages of 12 tokens: no multiple of 8, so the CUDA-core tile at D = 128
+    seed += 1
+    args, kw = prefill_inputs(torch, 32, 8, 128, 512, dtype, seed, page=12)
+    check_kernel(torch, timer, "packed_prefill_attention", args, kw,
+                 "qwen3-8b 4 segments, history<=512, pages of 12")
+    # the reduced qwen3-8b's 4 query heads over 1 kv head, D = 16
+    seed += 1
+    args, kw = flash_inputs(torch, 4, 1, 16, 1, 2100, 0, dtype, seed)
+    check_kernel(torch, timer, "flash_attention", args, kw,
+                 "D=16 H=4 Hkv=1 T=2100")
+    seed += 1
+    args, kw = prefill_inputs(torch, 4, 1, 16, 512, dtype, seed)
+    check_kernel(torch, timer, "packed_prefill_attention", args, kw,
+                 "D=16 H=4 Hkv=1 4 segments, history<=512")
+    check_route_refusals(torch, seed + 1)
+
+
+def check_route_refusals(torch, seed):
+    """The C entry points launch the route the wrapper names and refuse
+    inputs that route cannot take, so the per-route counts are of kernels
+    launched.  With ``route`` made to name the route the inputs cannot
+    take, each call here must raise and launch nothing."""
+    from repro_torch.kernels import flash_attention as fa
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        ("flash_attention", "f32 D=128", "wgmma",
+         flash_inputs(torch, 32, 8, 128, 1, 256, 0, f32, seed)),
+        ("flash_attention", "bf16 D=16", "wgmma",
+         flash_inputs(torch, 4, 1, 16, 1, 256, 0, bf16, seed + 1)),
+        ("flash_attention", "bf16 D=128", "tile",
+         flash_inputs(torch, 32, 8, 128, 1, 256, 0, bf16, seed + 2)),
+        ("packed_prefill_attention", "f32 D=128", "wgmma",
+         prefill_inputs(torch, 32, 8, 128, 64, f32, seed + 3)),
+        ("packed_prefill_attention", "bf16 D=128 pages of 12", "wgmma",
+         prefill_inputs(torch, 32, 8, 128, 64, bf16, seed + 4, page=12)),
+    ]
+    real = fa.route
+    for name, label, wrong, (args, kw) in cases:
+        fn = kernel_functions()[name]
+        before = fn.launches
+        fa.route = lambda *a, _wrong=wrong: _wrong
+        try:
+            fn(*args, **kw)
+            refused = False
+        except RuntimeError:
+            refused = True
+        finally:
+            fa.route = real
+        ok = refused and fn.launches == before
+        emit("route_refusal", name=name, inputs=label, route=wrong,
+             refused=refused, ok=ok)
+        if not ok:
+            FAILED.append(f"{name} [{label}]: route {wrong} was not refused")
 
 
 def require_all_agree(phase: str) -> None:
@@ -1060,6 +1246,7 @@ def bench_phase(torch, timer):
     fns = kernel_functions()
     for fn in fns.values():
         fn.launches = 0
+    reset_routes()
     out = io.StringIO()
     t0 = time.monotonic()
     with MainPathProbe(torch, 1, None, keep="each shape") as probe, \
@@ -1067,6 +1254,7 @@ def bench_phase(torch, timer):
         rc = bench_run.main(["--device", "cuda"])
     wall_s = time.monotonic() - t0
     launches = {name: fn.launches for name, fn in fns.items()}
+    routes = route_counts()
     lines = out.getvalue().splitlines()
     if rc != 0 or not lines or lines[0] != "name,value,unit,paper":
         raise AssertionError(f"bench: the runner returned {rc}")
@@ -1094,6 +1282,8 @@ def bench_phase(torch, timer):
         "flash_attention": reps, "packed_prefill_attention": reps,
         "paged_decode_attention": 0, "paged_decode_attention_q4": 0,
         "ssd_chunk": 0})
+    # the runner's B5 and B2 rows draw f32 inputs (torch.randn)
+    require_routes("bench", routes, launches, "tile")
     main = {}
     for name in ON_PATH["bench"]:
         calls = list(probe.inputs[name].values())
@@ -1313,6 +1503,7 @@ def serve_rounds(torch, eng, prompts, n_rounds, n_layers):
     fns = kernel_functions()
     for fn in fns.values():
         fn.launches = 0
+    reset_routes()
     rounds, unfinished = [], False
     with MainPathProbe(torch, n_layers, eng) as probe:
         for _ in range(n_rounds):
@@ -1325,6 +1516,7 @@ def serve_rounds(torch, eng, prompts, n_rounds, n_layers):
             rounds.append(serve_round(
                 reqs, list(eng.tick_log)[-(eng.n_ticks - n1):], wall_s))
     launches = {name: fn.launches for name, fn in fns.items()}
+    probe.routes = route_counts()
     log = list(eng.tick_log)[-(eng.n_ticks - ticks0):]
     if unfinished:
         raise AssertionError("not every request finished its 64 tokens")
@@ -1345,6 +1537,34 @@ def require_launches(phase, launches, expect):
         if launches[name] != n or (n == 0) != (name not in ON_PATH[phase]):
             raise AssertionError(f"{phase}: {name} launched {launches[name]} "
                                  f"times, expected {n}")
+
+
+# the kernels with two routes behind one entry point (tensor cores for bf16
+# at head dim 64 and 128, CUDA cores otherwise: kernels/flash_attention.py)
+ROUTED = ("flash_attention", "packed_prefill_attention")
+
+
+def route_counts():
+    """Each two-route kernel's launches by route, as its wrapper counts."""
+    fns = kernel_functions()
+    return {name: dict(fns[name].routes) for name in ROUTED}
+
+
+def reset_routes():
+    fns = kernel_functions()
+    for name in ROUTED:
+        for r in fns[name].routes:
+            fns[name].routes[r] = 0
+
+
+def require_routes(phase, routes, launches, want):
+    """Every launch of a two-route kernel in ``phase`` took route ``want``."""
+    for name in ROUTED:
+        other = sum(n for r, n in routes[name].items() if r != want)
+        if routes[name][want] != launches[name] or other:
+            raise AssertionError(f"{phase}: {name} launched {routes[name]} "
+                                 f"by route, expected all {launches[name]} "
+                                 f"on {want}")
 
 
 # the kernels each phase's main path runs
@@ -1399,7 +1619,7 @@ def serve_row(torch, cfg, prompts, rounds, probe, launches, log, **extra):
                 tpot_ms_median=median([r["tpot_ms_median"] for r in rounds]),
                 decode_tok_s_median=median([r["decode_tok_s"]
                                             for r in rounds]),
-                launches=launches,
+                launches=launches, routes=probe.routes,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                 **extra)
 
@@ -1443,6 +1663,7 @@ def serve_phase(torch, timer):
         "packed_prefill_attention": L * probe.steps["prefill"],
         "paged_decode_attention": L * probe.steps["decode"],
         "gemv": 0, "paged_decode_attention_q4": 0, "matmul": 0})
+    require_routes("serve", probe.routes, launches, "wgmma")
     main = {name: recheck(torch, timer, name, *probe.inputs[name][0],
                           launches[name], "serve main path")
             for name in ON_PATH["serve"]}
@@ -1487,6 +1708,7 @@ def serve_quantized_phase(torch, timer):
         "paged_decode_attention_q4": L * probe.steps["decode"],
         "packed_prefill_attention": L * probe.steps["prefill"],
         "paged_decode_attention": 0, "matmul": 0})
+    require_routes("serve_quantized", probe.routes, launches, "wgmma")
     main = {name: recheck(torch, timer, name, *probe.inputs[name][0],
                           launches[name], "serve_quantized main path")
             for name in ("paged_decode_attention_q4",
@@ -1552,6 +1774,7 @@ def serve_dense_phase(torch, timer):
         else:
             expect["packed_prefill_attention"] = L * probe.steps["prefill"]
         require_launches(phase, launches, expect)
+        require_routes(phase, probe.routes, launches, "wgmma")
         for name in ON_PATH[phase]:
             if name not in main:
                 main[name] = recheck(torch, timer, name,
@@ -1847,6 +2070,10 @@ def parity_phase(torch):
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.scheduler import PhaseAwareConfig
 
+    fns = kernel_functions()
+    for name in ROUTED:
+        fns[name].launches = 0
+    reset_routes()
     for name in ("llama2-7b", "qwen3-8b"):
         cfg = dataclasses.replace(get_config(name).reduced(), dtype="float32")
         params_cpu = init_params(cfg, torch.Generator().manual_seed(7), "cpu")
@@ -1876,6 +2103,13 @@ def parity_phase(torch):
                 params_cpu, dict(paged=False, max_len=96,
                                  phase=PhaseAwareConfig(prefill_chunk=0)),
                 prompts)
+    # f32 throughout: B2 and B5 ran, on the CUDA-core tile only
+    launches = {name: fns[name].launches for name in ROUTED}
+    routes = route_counts()
+    emit("parity", launches=launches, routes=routes)
+    if not all(launches.values()):
+        raise AssertionError(f"parity: B2 or B5 never launched: {launches}")
+    require_routes("parity", routes, launches, "tile")
 
 
 def parity_case(torch, name, cfg, params_dev, params_cpu, kw, prompts):
@@ -1960,7 +2194,16 @@ def main() -> int:
                              f"sm_{cap[0]}{cap[1]}")
     t0 = time.monotonic()
     built = _build.build_all()
-    emit("build", seconds=time.monotonic() - t0, compiled=built)
+    ptxas = {n: _build.ptxas_usage(n) for n in ROUTED}
+    emit("build", seconds=time.monotonic() - t0, compiled=built, ptxas=ptxas)
+    # the tensor-core kernels hold O and the scores in registers: a spill
+    # there is a design fault (the CUDA-core tile's are reported only)
+    spilled = [r["kernel"] for rows in ptxas.values() for r in rows
+               if "wgmma_kernel" in r["kernel"]
+               and (r["spill_stores"] or r["spill_loads"])]
+    if spilled:
+        raise AssertionError(f"tensor-core kernels spill registers: "
+                             f"{spilled}")
 
     timer = Timer(torch)
     failed = []

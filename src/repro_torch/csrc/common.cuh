@@ -11,6 +11,12 @@
 // dtype codes shared with the Python wrappers (kernels/_build.py DTYPE_CODES)
 enum { DTYPE_F32 = 0, DTYPE_BF16 = 1 };
 
+// route codes of the prefill attention kernels, chosen by the Python
+// wrappers (kernels/flash_attention.py ROUTE_CODES): the CUDA-core tile or
+// the tensor cores.  The C entry points launch the route they are given
+// and refuse inputs it cannot take.
+enum { ROUTE_TILE = 0, ROUTE_WGMMA = 1 };
+
 // the reference's "masked" score value
 constexpr float NEG_INF = -1e30f;
 

@@ -1,5 +1,8 @@
 // The register-tiled online-softmax step shared by the port's prefill
-// attention kernels (packed_prefill_attention.cu, flash_attention.cu).
+// attention kernels (packed_prefill_attention.cu, flash_attention.cu) on
+// their CUDA-core route: f32 at any head dim (the tensor cores have no IEEE
+// f32 mode) and bf16 at head dim 16 (the reduced configurations).  bf16 at
+// head dim 64 and 128 takes flash_wgmma.cuh (wgmma, TMA-fed K/V stages).
 //
 // A block holds kRows query rows — BQ = kRows / G tokens x the G query
 // heads of one GQA group — against one kv head, so each K/V row it stages
@@ -17,8 +20,7 @@
 // :175-207).  Invalid keys load as zero rows and masked scores get p = 0,
 // so no masked value is ever multiplied in.  Scores, the online softmax
 // and P.V accumulate in f32; p is rounded to the value dtype before P.V;
-// l is clamped at 1e-30.  Tensor cores (wgmma) and TMA-fed pipelines are
-// the next step.
+// l is clamped at 1e-30.
 #pragma once
 
 #include "common.cuh"

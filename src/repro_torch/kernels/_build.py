@@ -6,6 +6,8 @@ root of the checkout, and loaded with ``ctypes``.  The build happens at
 first use and is keyed by a hash of every source in ``csrc/`` and the
 compiler flags, so an edited source is rebuilt and an unchanged one is
 loaded as it is.  ``build_all`` starts one ``nvcc`` per source at once.
+``ptxas -v``'s report of each library's kernels (registers, stack, spills)
+is kept beside it and read by ``ptxas_usage``.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 KERNELS = ("paged_decode_attention", "packed_prefill_attention", "gemv_int8",
            "paged_decode_attention_q4", "flash_attention", "decode_attention",
            "ssd_chunk", "gemm_cim")
@@ -42,11 +45,11 @@ SIGNATURES = {
     "paged_decode_attention":
         [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P],
     "packed_prefill_attention":
-        [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P],
+        [I, I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P],
     "gemv_int8": [I, I, P, P, P, P, P, I, I, I, I, I, P],
     "paged_decode_attention_q4":
         [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P],
-    "flash_attention": [I, P, P, P, P, I, I, I, I, I, I, I, F, P],
+    "flash_attention": [I, I, P, P, P, P, I, I, I, I, I, I, I, F, P],
     "decode_attention": [I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
     "ssd_chunk": [I, P, P, P, P, P, P, P, I, I, I, I, I, P],
     "gemm_cim": [I, P, P, P, I, I, I, P],
@@ -98,7 +101,38 @@ def _finish(name: str, proc: subprocess.Popen) -> None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{out}")
+    _log_path(name).write_text(out)
     tmp.replace(_so_path(name))
+
+
+def _log_path(name: str) -> Path:
+    return _so_path(name).with_suffix(".ptxas")
+
+
+def parse_ptxas(text: str) -> List[dict]:
+    """Each kernel's registers, stack frame and spill bytes in the report
+    of ``nvcc -Xptxas -v``; device functions without a register line (not
+    kernels) are left out."""
+    rows: List[dict] = []
+    for line in text.splitlines():
+        if "Function properties for" in line:
+            rows.append(dict(kernel=line.split(" for ", 1)[1].strip()))
+        elif rows and "spill stores" in line:
+            stack, stores, loads = map(int, re.findall(r"(\d+) bytes",
+                                                       line)[:3])
+            rows[-1].update(stack=stack, spill_stores=stores,
+                            spill_loads=loads)
+        elif rows and re.search(r"Used \d+ registers", line):
+            rows[-1]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    return [r for r in rows if "registers" in r]
+
+
+def ptxas_usage(name: str) -> List[dict]:
+    """``parse_ptxas`` of the report kept when ``csrc/<name>.cu`` was
+    built (built first if it is not)."""
+    function(name)
+    return parse_ptxas(_log_path(name).read_text())
 
 
 def _load(name: str) -> ctypes.CDLL:

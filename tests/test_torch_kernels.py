@@ -4,6 +4,9 @@ Pallas kernels (interpret mode) and pure-JAX references, and the
 dispatcher's device rule.  Inputs are drawn with numpy and handed to both
 sides; everything is f32."""
 
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -239,3 +242,88 @@ def test_build_is_keyed_by_the_sources():
     assert set(_build.SIGNATURES) == set(_build.KERNELS)
     for name in _build.KERNELS:
         assert (_build.CSRC / f"{name}.cu").is_file()
+
+
+# -- the two routes of the prefill kernels ---------------------------------------
+
+@pytest.mark.parametrize("dtype,head_dim,page_size,want", [
+    (torch.bfloat16, 64, 8, "wgmma"), (torch.bfloat16, 128, 8, "wgmma"),
+    (torch.bfloat16, 128, 16, "wgmma"), (torch.bfloat16, 128, 8192, "wgmma"),
+    (torch.bfloat16, 128, 12, "tile"), (torch.bfloat16, 16, 8, "tile"),
+    (torch.float32, 16, 8, "tile"), (torch.float32, 64, 8, "tile"),
+    (torch.float32, 128, 16, "tile")])
+def test_prefill_route_by_dtype_and_head_dim(dtype, head_dim, page_size,
+                                             want):
+    """bf16 at head dim 64 and 128 (every full-width main path) runs on the
+    tensor cores, over pool pages of a multiple of 8 tokens (one TMA box is
+    at least 8 rows); f32 (no IEEE tensor-core mode), the reduced configs'
+    head dim 16 and other page sizes on the CUDA-core tile.  Both wrappers
+    count each route."""
+    assert cuda_prefill.route(dtype, head_dim, page_size) == want
+    if page_size == 8:                  # B5 has no pages: the default
+        assert cuda_prefill.route(dtype, head_dim) == want
+    for fn in (cuda_prefill.flash_attention,
+               cuda_prefill.packed_prefill_attention):
+        assert set(fn.routes) == {"wgmma", "tile"}
+
+
+@pytest.mark.parametrize("offset,bad", [
+    (0, False), (2, True), (8, True), (14, True), (16, False), (48, False),
+    (4096 + 6, True)])
+def test_tensor_core_route_alignment_rule(offset, bad):
+    """TMA needs 16-byte aligned base addresses: the rule as arithmetic on
+    an address, and the wrappers' check on a bf16 view that starts
+    ``offset`` bytes into an aligned buffer."""
+    assert cuda_prefill.misaligned(offset) is bad
+    buf = torch.zeros(4096, dtype=torch.bfloat16)
+    first = (-buf.data_ptr() % cuda_prefill.ALIGN) // 2   # aligned element
+    view = buf[first + offset // 2:]
+    if bad:
+        with pytest.raises(ValueError, match="aligned"):
+            cuda_prefill.check_aligned("k", [buf[first:], view])
+    else:
+        cuda_prefill.check_aligned("k", [buf[first:], view])
+
+
+def test_route_codes_match_the_c_header():
+    """The wrapper passes its route to the C entry point as the code that
+    ``csrc/common.cuh`` gives it."""
+    text = (_build.CSRC / "common.cuh").read_text()
+    m = re.search(r"enum \{ ROUTE_TILE = (\d+), ROUTE_WGMMA = (\d+) \};", text)
+    assert cuda_prefill.ROUTE_CODES == {"tile": int(m[1]), "wgmma": int(m[2])}
+
+
+@pytest.mark.parametrize("name", _build.KERNELS)
+def test_signature_matches_the_c_entry_point(name):
+    """Each ctypes signature has one argument per parameter of its C entry
+    point, of the parameter's kind: int, float or a pointer."""
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    m = re.search(r'extern "C" int ' + name + r"\((.*?)\)\s*\{", src, re.S)
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    kinds = [ctypes.c_int if p.split()[0] == "int"
+             else ctypes.c_float if p.split()[0] == "float"
+             else ctypes.c_void_p if "*" in p else None for p in params]
+    assert kinds == _build.SIGNATURES[name], params
+
+
+def test_ptxas_report_parsed_per_kernel():
+    """Registers, stack and spills of each kernel in an ``nvcc -Xptxas -v``
+    report; a device function (no register line) is not a kernel."""
+    text = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooPf
+    8 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 360 bytes cmem[0]
+ptxas info    : Function properties for _Z6helperv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'
+ptxas info    : Function properties for _Z3barv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 153 registers, used 1 barriers, 384 bytes cmem[0]
+"""
+    assert _build.parse_ptxas(text) == [
+        dict(kernel="_Z3fooPf", stack=8, spill_stores=16, spill_loads=12,
+             registers=255),
+        dict(kernel="_Z3barv", stack=0, spill_stores=0, spill_loads=0,
+             registers=153)]
+    assert "-v" in _build.NVCC_FLAGS     # every build keeps its report

@@ -424,3 +424,38 @@ def test_gemm_tolerance_fails_a_dropped_k_tile(monkeypatch, dtype):
     assert chip_smoke.close(torch, f64, want, dt, A, tol)[1]
     assert not chip_smoke.close(torch, ref.matmul_ref(dropped, w), want, dt,
                                 A, tol)[1]
+
+
+def test_prefill_bound_counts_window_pairs(monkeypatch):
+    """Over a sliding-window pool whose history has wrapped, the operations
+    count each query's keys inside its window only, and the bytes the
+    history positions some query sees: the same totals as counting the
+    plain version's own mask pair by pair."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    from repro_torch.kernels import ref
+    from repro_torch.models.attention import _gather_history
+    H, Hkv, D = 4, 2, 16
+    args, kw = chip_smoke.ring_prefill_inputs(torch, H, Hkv, D,
+                                              torch.float32, seed=1)
+    q, _, _, kp, vp, bt, starts, offs, lens = args
+    assert kw["ring"] < min(offs[:2].tolist())   # the history has wrapped
+    _, _, pos = _gather_history(kp, vp, bt, offs, kw["ring"])
+    pairs = seen_total = 0
+    for n in range(len(lens)):
+        m, off = int(lens[n]), int(offs[n])
+        if m <= 0 or int(starts[n]) >= q.shape[0]:
+            continue
+        seen = torch.zeros_like(pos[n], dtype=torch.bool)
+        for i in range(m):
+            vis = (pos[n] >= 0) & (off + i - pos[n] < kw["window"])
+            seen |= vis
+            pairs += int(vis.sum()) + min(i + 1, kw["window"])
+        seen_total += int(seen.sum())
+    nbytes = (int(lens.sum()) * (2 * H + 2 * Hkv) * D * 4
+              + 2 * seen_total * Hkv * D * 4
+              + 4 * len(lens) * (3 + bt.shape[1]))
+    want = chip_smoke.bound(nbytes, 4.0 * pairs * H * D, "float32")
+    assert chip_smoke.prefill_cost(args, kw) == pytest.approx(want)
+    # the plain version masks every NaN-poisoned slot of the pool
+    out = ref.packed_prefill_attention_ref(*args, **kw)
+    assert torch.isfinite(out).all()
