@@ -12,8 +12,10 @@ Phases, one JSON line each:
 2. ``build``   — every kernel compiled from ``src/repro_torch/csrc`` by
    ``nvcc`` (one process per source, all started together), with seconds,
    and the registers, stack and spill bytes ``-Xptxas -v`` reported for
-   every kernel of B5's and B2's sources in that build; the tensor-core
-   kernels may not spill.
+   every kernel of B5's, B2's, B3's and B8's sources in that build; the
+   tensor-core kernels may not spill, and B8's must be given 168 registers
+   a thread (what its ``setmaxnreg`` hand-over from producer to consumers
+   assumes).
 3. ``kernel``  — each kernel against its plain version on the card, per
    dtype and shape set: qwen3-8b (H=32, Hkv=8, D=128) and llama2-7b (H=32,
    Hkv=32) geometry, page size 16, contexts 512 and 4096; paged decode
@@ -42,6 +44,13 @@ Phases, one JSON line each:
    name, and each entry point must refuse a route its inputs cannot take
    (``check_route_refusals``: f32 or head dim 16 on the tensor cores, B5
    in bf16 at 128 on the tile, B2 over pages of 12 on the tensor cores).
+   B3 and B8 have two routes in the same way (bf16 that TMA can address —
+   B3 with at most 32 rows of x — on the tensor cores: wgmma over a
+   TMA-fed ring; f32 and other shapes on the tile), and the kernel phase
+   adds for them: B3 over int8 weights covering -127 ... 127, B8 at N =
+   1024 (128-column tiles), two launches of each on the same inputs giving
+   identical bits, and refusals of f32 B3 and B8, B8 at K = 41 and B3 over
+   int8 rows of 1000 bytes on the tensor cores.
    Tolerances: B7, whatever the input dtype, the per-element worst-case
    bound of f32 arithmetic of ``ssd_tolerance``; otherwise
    f32 |err| <= 1e-4; bf16 (see ``tolerance``) for the float
@@ -76,7 +85,9 @@ Phases, one JSON line each:
    analytic model's paper figures and the kernel micro-benchmarks, each
    row a JSON line, all finite.  B8, the GEMV, B5, B6 and B2 must launch
    there and no other kernel, and no plain version may be called; B8 is
-   re-checked at the inputs of its 2048 x 4096 x 12288 bf16 launch.
+   re-checked at the inputs of its 2048 x 4096 x 12288 bf16 launch.  The
+   runner's f32 rows (B3, B5, B2 and one of B8's) must launch on the tile,
+   B8's bf16 row on the tensor cores.
 5. ``serve``   — ``ServingEngine`` on qwen3-8b at full width and all 36
    layers in bf16 (random weights from a seeded ``torch.Generator`` on the
    card): paged pool (page 16, 1024 pages), max_batch 4, default
@@ -98,8 +109,10 @@ Phases, one JSON line each:
    three FFN matmuls), the int4 decode kernel n_layers times per decode
    step, the packed-prefill kernel (over the pool dequantized to bf16)
    n_layers times per prefill step, the float decode kernel never; each
-   kernel is re-checked at the main path's inputs as in ``serve``, and a
-   ``profile`` line (``"of": "serve_quantized"``) follows as for ``serve``.
+   kernel is re-checked at the main path's inputs as in ``serve``, the
+   GEMV's seven calls also timed with the L2 flushed by a read (clean)
+   rather than a write (the ``gemv_clean_l2`` line), and a ``profile``
+   line (``"of": "serve_quantized"``) follows as for ``serve``.
 7. ``serve_dense`` — qwen3-8b as in ``serve`` on the DENSE arena
    (``paged=False``, max_len 8192, max_batch 4) with whole-prompt prefill
    (``prefill_chunk=0``): prompts of 8000, 4096, 2304 and 1000 tokens, 64
@@ -137,10 +150,10 @@ Phases, one JSON line each:
    top-2 logit margin, recorded as it served, is at most 1e-3.
 
 In every serve phase each kernel's plain version must be called 0 times:
-on the card nothing falls back to it.  B5 and B2 count their launches by
-route: ``serve``, ``serve_quantized`` and both ``serve_dense`` rounds (bf16)
-must launch only their tensor-core route, ``parity`` (f32) and ``bench``
-(whose kernel rows draw f32 inputs) only the CUDA-core tile.
+on the card nothing falls back to it.  B5, B2, B3 and B8 count their
+launches by route: ``serve``, ``serve_quantized`` (B3 among them) and both
+``serve_dense`` rounds (bf16) must launch only their tensor-core route,
+``parity`` (f32) only the CUDA-core tile, and ``bench`` as said above.
 
 Then one ``{"kernels": [...]}`` line (launches from the serve phase whose
 main path runs the kernel — ``serve_quantized`` for the GEMV and the int4
@@ -208,10 +221,13 @@ class Timer:
     """Median per-call device time of ``fn`` over ``ITERS`` calls, timed
     with CUDA events; a 256 MB buffer is rewritten between calls so every
     call finds the 50 MB L2 cold, as a layer's kernel does on the main
-    path (each layer reads its own pool)."""
+    path (each layer reads its own pool).  The rewrite leaves the L2 full
+    of dirty lines, which a call that reads much must first write back (up
+    to 50 MB); with ``clean`` the buffer is read instead, so the L2 is cold
+    and clean, as it is between a decode step's weight reads."""
 
-    def __init__(self, torch):
-        self.torch = torch
+    def __init__(self, torch, clean=False):
+        self.torch, self.clean = torch, clean
         self.flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
 
     def __call__(self, fn, iters: int = ITERS) -> float:
@@ -220,7 +236,10 @@ class Timer:
         torch.cuda.synchronize()
         times = []
         for _ in range(iters):
-            self.flush.zero_()
+            if self.clean:
+                self.flush.sum()
+            else:
+                self.flush.zero_()
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -1020,9 +1039,7 @@ def check_kernel(torch, timer, name, args, kw, label, timed=True,
                              "dense K/V (yardstick only)"))
     if before is not None:
         # every launch of this check took the route its inputs name
-        from repro_torch.kernels.flash_attention import route
-        pages = args[3].shape[1] if name == "packed_prefill_attention" else 8
-        path = route(args[0].dtype, args[0].shape[-1], pages)
+        path = expected_route(name, args)
         took = {r: n - before[r] for r, n in route_counts()[name].items()}
         row["route"] = path
         if not took[path] or any(n for r, n in took.items() if r != path):
@@ -1097,6 +1114,7 @@ def kernel_phase(torch, timer):
                          f"mamba2-2.7b nc={nc} Q={Q}")
         kernel_phase_b8_d64(torch, timer, dtype)
         kernel_phase_routes(torch, timer, dtype)
+        kernel_phase_b3_b8(torch, timer, dtype)
     require_all_agree("kernel")
 
 
@@ -1178,6 +1196,10 @@ def check_route_refusals(torch, seed):
     launched.  With ``route`` made to name the route the inputs cannot
     take, each call here must raise and launch nothing."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm_cim as gm
+    from repro_torch.kernels import gemv_cid as gc
+    module = {"flash_attention": fa, "packed_prefill_attention": fa,
+              "gemv": gc, "matmul": gm}
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [
         ("flash_attention", "f32 D=128", "wgmma",
@@ -1190,24 +1212,81 @@ def check_route_refusals(torch, seed):
          prefill_inputs(torch, 32, 8, 128, 64, f32, seed + 3)),
         ("packed_prefill_attention", "bf16 D=128 pages of 12", "wgmma",
          prefill_inputs(torch, 32, 8, 128, 64, bf16, seed + 4, page=12)),
+        ("matmul", "f32 M=256 K=4096 N=1024", "wgmma",
+         (gemm_inputs(torch, 256, 4096, 1024, f32, seed + 5), {})),
+        ("matmul", "bf16 M=37 K=41 N=24", "wgmma",
+         (gemm_inputs(torch, 37, 41, 24, bf16, seed + 6), {})),
+        ("gemv", "f32 x, int8 w, M=4 K=4096 N=1024", "wgmma",
+         (gemv_inputs(torch, 4, 4096, 1024, f32, seed + 7), {})),
+        # rows of 1000 int8 bytes: not 16-byte aligned
+        ("gemv", "bf16 x, int8 w, M=4 K=4096 N=1000", "wgmma",
+         (gemv_inputs(torch, 4, 4096, 1000, bf16, seed + 8), {})),
     ]
-    real = fa.route
     for name, label, wrong, (args, kw) in cases:
-        fn = kernel_functions()[name]
+        fn, mod = kernel_functions()[name], module[name]
         before = fn.launches
-        fa.route = lambda *a, _wrong=wrong: _wrong
+        real = mod.route
+        mod.route = lambda *a, _wrong=wrong: _wrong
         try:
             fn(*args, **kw)
             refused = False
         except RuntimeError:
             refused = True
         finally:
-            fa.route = real
+            mod.route = real
         ok = refused and fn.launches == before
         emit("route_refusal", name=name, inputs=label, route=wrong,
              refused=refused, ok=ok)
         if not ok:
             FAILED.append(f"{name} [{label}]: route {wrong} was not refused")
+
+
+def kernel_phase_b3_b8(torch, timer, dtype):
+    """What B3's and B8's two routes need beyond the cases above: B3 over
+    int8 weights that take every value -127 ... 127; B8 at N = 1024, where
+    the tensor-core route takes 128-column tiles; and two launches of each
+    on the same inputs giving the same bits, on either route (the split-K
+    sums of B3 are taken in chunk order and its tile counters reset by each
+    launch).  Seeds of their own, so the other checks' inputs stay as they
+    were."""
+    from repro_torch.kernels import gemm_cim as gm
+    seed = 3000 + 100 * (dtype == torch.bfloat16)
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    K, N = 4096, 4096
+    q = torch.randint(-127, 128, (K, N), device=DEV, generator=g,
+                      dtype=torch.int8)
+    q.view(-1)[:255] = torch.arange(-127, 128, device=DEV, dtype=torch.int8)
+    scale = torch.rand(N, device=DEV, generator=g) / (127 * K ** 0.5)
+    x = torch.randn((4, K), device=DEV, generator=g).to(dtype)
+    check_kernel(torch, timer, "gemv", (x, q, scale), {},
+                 f"M=4 K={K} N={N}, int8 weights -127..127", timed=False)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    seed += 1
+    args = gemm_inputs(torch, GEMM_M, 4096, 1024, dtype, seed)
+    check_kernel(torch, timer, "matmul", args, {},
+                 f"M={GEMM_M} K=4096 N=1024, block_n "
+                 f"{gm.block_n(GEMM_M, 1024, sms)}", timed=False)
+    fns = kernel_functions()
+    (M, K, N), edge_kw = GEMM_EDGES[1]
+    repeats = [("gemv", gemv_inputs(torch, 4, 4096, 12288, dtype, seed + 1),
+                {}),
+               ("gemv", gemv_inputs(torch, 32, 12288, 4096, dtype, seed + 2),
+                {}),
+               ("gemv", gemv_inputs(torch, 4, 4096, 11008, dtype, seed + 3,
+                                    quantized=False), {}),
+               ("matmul", gemm_inputs(torch, GEMM_M, 4096, 12288, dtype,
+                                      seed + 4), {}),
+               ("matmul", gemm_inputs(torch, M, K, N, dtype, seed + 5),
+                edge_kw)]
+    for name, args, kw in repeats:
+        a, b = fns[name](*args, **kw), fns[name](*args, **kw)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(a, b))
+        label = shapes_label(args, kw)
+        emit("repeat", name=name, inputs=label,
+             route=expected_route(name, args), identical=same, ok=same)
+        if not same:
+            FAILED.append(f"{name} [{label}]: two launches differ")
 
 
 def require_all_agree(phase: str) -> None:
@@ -1282,8 +1361,11 @@ def bench_phase(torch, timer):
         "flash_attention": reps, "packed_prefill_attention": reps,
         "paged_decode_attention": 0, "paged_decode_attention_q4": 0,
         "ssd_chunk": 0})
-    # the runner's B5 and B2 rows draw f32 inputs (torch.randn)
-    require_routes("bench", routes, launches, "tile")
+    # the runner's B5, B2 and B3 rows draw f32 inputs (torch.randn), and
+    # B8 one f32 row and one bf16 row (the tensor cores)
+    require_routes("bench", routes, launches, {
+        "matmul": {"wgmma": reps, "tile": reps}, "gemv": "tile",
+        "flash_attention": "tile", "packed_prefill_attention": "tile"})
     main = {}
     for name in ON_PATH["bench"]:
         calls = list(probe.inputs[name].values())
@@ -1539,9 +1621,13 @@ def require_launches(phase, launches, expect):
                                  f"times, expected {n}")
 
 
-# the kernels with two routes behind one entry point (tensor cores for bf16
-# at head dim 64 and 128, CUDA cores otherwise: kernels/flash_attention.py)
-ROUTED = ("flash_attention", "packed_prefill_attention")
+# the kernels with two routes behind one entry point (tensor cores or the
+# tile: kernels/flash_attention.py, gemv_cid.py and gemm_cim.py), and the
+# source each is built from
+ROUTED = ("flash_attention", "packed_prefill_attention", "gemv", "matmul")
+SOURCE_OF = {"flash_attention": "flash_attention",
+             "packed_prefill_attention": "packed_prefill_attention",
+             "gemv": "gemv_int8", "matmul": "gemm_cim"}
 
 
 def route_counts():
@@ -1558,13 +1644,35 @@ def reset_routes():
 
 
 def require_routes(phase, routes, launches, want):
-    """Every launch of a two-route kernel in ``phase`` took route ``want``."""
+    """Every launch of a two-route kernel in ``phase`` took the route
+    ``want`` names: one route for all ("wgmma" or "tile"), or per kernel a
+    route or a count per route."""
     for name in ROUTED:
-        other = sum(n for r, n in routes[name].items() if r != want)
-        if routes[name][want] != launches[name] or other:
+        w = want.get(name) if isinstance(want, dict) else want
+        expect = ({w: launches[name]} if isinstance(w, str) else dict(w))
+        got = {r: n for r, n in routes[name].items() if n}
+        if got != {r: n for r, n in expect.items() if n}:
             raise AssertionError(f"{phase}: {name} launched {routes[name]} "
-                                 f"by route, expected all {launches[name]} "
-                                 f"on {want}")
+                                 f"by route, expected {expect}")
+
+
+def expected_route(name, args):
+    """The route a two-route kernel's inputs name (its wrapper's
+    ``route``)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm_cim as gm
+    from repro_torch.kernels import gemv_cid as gc
+    if name == "gemv":
+        x, w = args[0], args[1]
+        return gc.route(x.dtype, x.shape[0], x.shape[1], w.shape[1],
+                        w.element_size(), _build.aligned16(x, w))
+    if name == "matmul":
+        x, w = args
+        return gm.route(x.dtype, x.shape[1], w.shape[1],
+                        _build.aligned16(x, w))
+    pages = args[3].shape[1] if name == "packed_prefill_attention" else 8
+    return fa.route(args[0].dtype, args[0].shape[-1], pages)
 
 
 # the kernels each phase's main path runs
@@ -1717,6 +1825,18 @@ def serve_quantized_phase(torch, timer):
                      launches["gemv"],
                      f"serve_quantized main path, layer call {j}")
              for j in range(MainPathProbe.GEMV_PER_LAYER)]
+    # the same calls timed again with the L2 left clean between them
+    clean = Timer(torch, clean=True)
+    gemv = kernel_functions()["gemv"]
+    for j, c in enumerate(calls):
+        args = probe.inputs["gemv"][j][0]
+        c["kernel_ms_clean_l2"] = clean(lambda: gemv(*args))
+        c["library_ms_clean_l2"] = clean(gemv_library(torch, *args))
+    emit("gemv_clean_l2", calls=[
+        dict(call=j, kernel_ms=c["kernel_ms_clean_l2"],
+             library_ms=c["library_ms_clean_l2"], bound_ms=c["bound_ms"])
+        for j, c in enumerate(calls)])
+    del clean
     # one layer's seven GEMV calls as one entry: their times and bounds add
     main["gemv"] = dict(
         launches=launches["gemv"],
@@ -1726,6 +1846,8 @@ def serve_quantized_phase(torch, timer):
         bound_by=("bytes" if all(c["bound_by"] == "bytes" for c in calls)
                   else "operations"),
         library_ms=sum(c["library_ms"] for c in calls),
+        kernel_ms_clean_l2=sum(c["kernel_ms_clean_l2"] for c in calls),
+        library_ms_clean_l2=sum(c["library_ms_clean_l2"] for c in calls),
         max_abs_err=max(c["max_abs_err"] for c in calls),
         f32=dict(max_abs_err=max(c["f32"]["max_abs_err"] for c in calls)),
         per="one layer of a decode step: wq, wk, wv, wo, gate, up, down")
@@ -2103,11 +2225,13 @@ def parity_phase(torch):
                 params_cpu, dict(paged=False, max_len=96,
                                  phase=PhaseAwareConfig(prefill_chunk=0)),
                 prompts)
-    # f32 throughout: B2 and B5 ran, on the CUDA-core tile only
+    # f32 throughout: B2 and B5 ran, on the CUDA-core tile only (B3 and B8
+    # are on no path here)
     launches = {name: fns[name].launches for name in ROUTED}
     routes = route_counts()
     emit("parity", launches=launches, routes=routes)
-    if not all(launches.values()):
+    if not (launches["flash_attention"]
+            and launches["packed_prefill_attention"]):
         raise AssertionError(f"parity: B2 or B5 never launched: {launches}")
     require_routes("parity", routes, launches, "tile")
 
@@ -2194,9 +2318,9 @@ def main() -> int:
                              f"sm_{cap[0]}{cap[1]}")
     t0 = time.monotonic()
     built = _build.build_all()
-    ptxas = {n: _build.ptxas_usage(n) for n in ROUTED}
+    ptxas = {SOURCE_OF[n]: _build.ptxas_usage(SOURCE_OF[n]) for n in ROUTED}
     emit("build", seconds=time.monotonic() - t0, compiled=built, ptxas=ptxas)
-    # the tensor-core kernels hold O and the scores in registers: a spill
+    # the tensor-core kernels hold their accumulators in registers: a spill
     # there is a design fault (the CUDA-core tile's are reported only)
     spilled = [r["kernel"] for rows in ptxas.values() for r in rows
                if "wgmma_kernel" in r["kernel"]
@@ -2204,6 +2328,15 @@ def main() -> int:
     if spilled:
         raise AssertionError(f"tensor-core kernels spill registers: "
                              f"{spilled}")
+    # B8's producer hands 128 of its registers a thread to the consumers
+    # (setmaxnreg 40 -> 232): that needs the launch's 168 a thread, the most
+    # one block of 384 threads can have; with fewer the consumers would wait
+    # for registers that never come
+    short = [r for r in ptxas["gemm_cim"]
+             if "gemm_wgmma_kernel" in r["kernel"] and r["registers"] != 168]
+    if short:
+        raise AssertionError(f"B8's tensor-core kernel was not given 168 "
+                             f"registers a thread: {short}")
 
     timer = Timer(torch)
     failed = []

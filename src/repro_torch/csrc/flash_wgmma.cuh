@@ -66,8 +66,11 @@
 
 #include "common.cuh"
 #include "flash_tile.cuh"
+#include "hopper.cuh"
 
 namespace flash_wgmma {
+
+using namespace hopper;
 
 using bf16 = __nv_bfloat16;
 
@@ -102,119 +105,18 @@ inline size_t smem_bytes() {
   return sizeof(Smem<kD>) + 1024;
 }
 
-// ---------------------------------------------------------------------------
-// PTX: shared addresses, barriers, TMA, wgmma
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 template <int kD>
 __device__ __forceinline__ Smem<kD>& smem_of(unsigned char* raw) {
-  const uint32_t pad = (1024u - (saddr(raw) & 1023u)) & 1023u;
-  return *reinterpret_cast<Smem<kD>*>(raw + pad);
+  return *reinterpret_cast<Smem<kD>*>(align1024(raw));
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(saddr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(saddr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(saddr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(saddr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// order this thread's plain shared-memory writes before later reads of the
-// async proxy (TMA, wgmma)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// one box of a 3-D tensor map (coordinates innermost first) into shared
-// memory, completing `bytes` on `bar`
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(saddr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// shared-memory matrix descriptor of a tile in the 128-byte swizzled layout:
-// 128-byte rows, 8-row groups `sbo` bytes apart, 64-column chunks `lbo`
-// bytes apart (MN-major operands; K-major ones ignore it)
-__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((saddr(p) & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+// ---------------------------------------------------------------------------
+// wgmma with A in registers (P . V); the rest is hopper.cuh's
+// ---------------------------------------------------------------------------
 
 #define FW_OUT8(i)                                                                    \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),       \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                        int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : FW_OUT8(0), FW_OUT8(8), FW_OUT8(16), FW_OUT8(24)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
 
 // d[64 x 64] += A[64 x 16] (registers) B[16 x 64] (shared, MN-major)
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
@@ -337,7 +239,7 @@ __device__ __forceinline__ void init_barriers(Smem<kD>& sm) {
       mbar_init(&sm.empty[s], 4 * kWG);
     }
     mbar_init(&sm.aux, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_barrier_init();
   }
   __syncthreads();
 }
@@ -393,10 +295,10 @@ __device__ __forceinline__ void consume(Smem<kD>& sm, int wg, int n_tiles,
 #pragma unroll
     for (int ks = 0; ks < kD / 16; ++ks) {
       const uint32_t off = ((ks / 4) * kChunkBytes + (ks % 4) * 32) >> 4;
-      wgmma_ss(s, qd + off, kd + off, ks);
+      wgmma_ss<64, 0, 0>(s, qd + off, kd + off, ks);
     }
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     fence_regs(s);
 
     // scores -> log2 units; masked ones -inf (p = 0, out of the max)
@@ -465,7 +367,7 @@ __device__ __forceinline__ void consume(Smem<kD>& sm, int wg, int n_tiles,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wgmma_rs(o, a[kk], vd + ((kk * 16 * 128) >> 4));
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     fence_regs(o);
 
     // the stage is free once every warp of both consumers is done with it
@@ -502,47 +404,17 @@ __device__ __forceinline__ void consume(Smem<kD>& sm, int wg, int n_tiles,
 // host: tensor maps
 // ---------------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime, so the
-// library needs no link against libcuda
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A map over a bf16 tensor seen as [n2][n1][kD] with strides s1, s2 (in
 // elements) for its two outer dims, read in boxes of 64 x b1 x b2 (one
 // 128-byte row of 64 values per (i1, i2)), 128-byte swizzle; boxes past an
 // end read as zero.  The base and the strides must be 16-byte aligned.
 inline bool make_map(CUtensorMap* map, const void* base, int kD, uint64_t n1, uint64_t n2,
                      uint64_t s1, uint64_t s2, uint32_t b1, uint32_t b2) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr || (reinterpret_cast<uintptr_t>(base) & 15) != 0) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(kD), n1, n2};
-  const cuuint64_t strides[2] = {s1 * 2, s2 * 2};
-  const cuuint32_t box[3] = {64, b1, b2};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const uint64_t dims[3] = {static_cast<uint64_t>(kD), n1, n2};
+  const uint64_t strides[2] = {s1 * 2, s2 * 2};
+  const uint32_t box[3] = {64, b1, b2};
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace flash_wgmma

@@ -16,21 +16,43 @@
 //
 // HALO's weight-stationary dataflow, mapped onto the card: the crossbar
 // loads a weight tile once and streams many activation rows through it.
-// Here each block owns one (128 x 128) output tile and walks K innermost
-// with its f32 accumulator held in registers for the whole walk (the Pallas
-// kernel keeps it in VMEM scratch across its innermost grid axis); blocks
-// are launched M tile fastest, so the blocks that run together share a
-// weight column tile, which comes from device memory about once and is
-// re-read from L2 by every activation row tile.
+// Here each output tile's f32 accumulator stays in registers for its whole
+// K walk (the Pallas kernel keeps it in VMEM scratch across its innermost
+// grid axis), and tiles are taken M tile fastest, so the blocks that run
+// together share a weight column tile, which comes from device memory
+// about once and is re-read from L2 by every activation row tile.
+//
+// Two routes behind one entry point; the wrapper (kernels/gemm_cim.py
+// route) picks and passes its choice, and inputs the route cannot take are
+// refused:
+//
+// ROUTE_WGMMA, bf16 with K and N multiples of 8 and 16-byte aligned x, w
+// and out (what TMA can address) — gemm_wgmma_kernel.  A persistent grid of
+// at most one block per SM walks the output tiles (128 x kBN, kBN = 256, or
+// 128 when 256-column tiles would leave SMs idle: the wrapper's choice).  A
+// block is one producer warpgroup, which hands back its registers
+// (setmaxnreg) and of which one thread issues the TMA loads, and two
+// consumer warpgroups of 64 rows each.  The producer fills a ring of
+// kStages stages, each x's [128 x 64] tile (K-major) and w's [64 x kBN]
+// tile (MN-major: w is row-major [K, N], the transposed B operand bf16
+// allows), both in the 128-byte swizzle, guarded by `full` (TMA bytes) and
+// `empty` (one arrival per consumer warp) mbarriers.  Each consumer issues
+// wgmma m64n<kBN>k16 for the stage's four K steps, commits, and waits only
+// for the previous stage's group before releasing that stage, so one group
+// is in flight while the next stage lands.  The epilogue rounds to bf16
+// into a swizzled shared tile and writes it with TMA stores, which clip
+// rows past M and columns past N; TMA loads zero-fill past M, N and K, so
+// partial tiles need no other code.
+//
+// ROUTE_TILE, any shape in f32 or bf16:
 //
 // bf16 (gemm_bf16): tensor cores through mma.sync m16n8k16 with f32
-// accumulators.  8 warps, 2 along M x 4 along N, each a 64 x 32 sub-tile.
-// K steps of 32 are staged in shared memory by 16-byte cp.async copies in a
-// ring of 3 stages, so two steps' loads are in flight while one is
-// multiplied.  x's tile is read with ldmatrix, w's (row-major [K, N], so
-// the B operand is K-major) with ldmatrix.trans; rows are padded by 16
-// bytes, so neither read has bank conflicts.  wgmma and TMA come with a
-// later redesign.
+// accumulators.  128 x 128 block tiles, 8 warps, 2 along M x 4 along N,
+// each a 64 x 32 sub-tile.  K steps of 32 are staged in shared memory by
+// 16-byte cp.async copies in a ring of 3 stages.  x's tile is read with
+// ldmatrix, w's (row-major [K, N], so the B operand is K-major) with
+// ldmatrix.trans; rows are padded by 16 bytes, so neither read has bank
+// conflicts.
 //
 // f32 (gemm_f32): the tensor cores have no IEEE f32 mode and the port keeps
 // TF32 off, so CUDA-core FMAs: 128 x 128 tiles, K steps of 8, each thread
@@ -38,13 +60,14 @@
 // registers while the current one is multiplied (two shared-memory
 // buffers, one barrier a step).  Each output sums its K products in order.
 //
-// Any shape: edge tiles are predicated (rows past M, columns past N and K
-// past its end load as zero and are never stored).  The 16-byte copies need
-// K and N to be multiples of 8 (bf16) or 4 (f32) and 16-byte aligned
+// On the tile, edge tiles are predicated (rows past M, columns past N and
+// K past its end load as zero and are never stored).  The 16-byte copies
+// need K and N to be multiples of 8 (bf16) or 4 (f32) and 16-byte aligned
 // pointers; otherwise the tiles are loaded element by element.
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -323,19 +346,208 @@ gemm_f32(const float* __restrict__ x, const float* __restrict__ w, float* __rest
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: wgmma, TMA-fed ring (ROUTE_WGMMA)
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+using namespace hopper;
+using bf16 = __nv_bfloat16;
+
+constexpr int kBM = 128;                  // rows of an output tile
+constexpr int kBK = 64;                   // K per stage: one 128-byte row
+constexpr int kConsumers = 2;             // warpgroups of 64 rows
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kChunk = 64 * 64;           // bf16 of a 64 x 64 swizzled box
+
+template <int kBN>
+struct Smem {
+  static constexpr int kStages = kBN == 256 ? 3 : 5;
+  static constexpr int kC = kBN / 64;     // 64-column chunks of a tile
+  bf16 a[kStages][kBM * kBK];             // x: 128 rows of 64 K, K-major
+  bf16 b[kStages][kC][kChunk];            // w: 64 K rows of 64 columns per chunk
+  bf16 c[kConsumers][kC][kChunk];         // the epilogue's 64 x kBN tile per consumer
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+};
+
+template <int kBN>
+inline size_t smem_bytes() {
+  return sizeof(Smem<kBN>) + 1024;
+}
+
+template <int kBN>
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap a_map,
+                  const __grid_constant__ CUtensorMap b_map,
+                  const __grid_constant__ CUtensorMap c_map, int M, int N, int K) {
+  using S = Smem<kBN>;
+  constexpr int kStages = S::kStages, kC = S::kC;
+  extern __shared__ unsigned char smem_raw[];
+  S& sm = *reinterpret_cast<S*>(align1024(smem_raw));
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 4 * kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int m_tiles = (M + kBM - 1) / kBM;
+  const int tiles = m_tiles * ((N + kBN - 1) / kBN);
+  const int nk = (K + kBK - 1) / kBK;
+  const int role = threadIdx.x / 128, t = threadIdx.x % 128;
+
+  if (role == kConsumers) {
+    // producer: one thread issues every load; the warpgroup's registers go
+    // to the consumers
+    setmaxnreg_dec<40>();
+    if (t != 0) return;
+    constexpr uint32_t kBytes = (kBM * kBK + kBK * kBN) * 2;
+    int stage = 0, phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile % m_tiles) * kBM, n0 = (tile / m_tiles) * kBN;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(&sm.empty[stage], phase ^ 1);
+        mbar_arrive_expect_tx(&sm.full[stage], kBytes);
+        tma_load_2d(&sm.a[stage][0], &a_map, &sm.full[stage], kt * kBK, m0);
+#pragma unroll
+        for (int c = 0; c < kC; ++c)
+          tma_load_2d(&sm.b[stage][c][0], &b_map, &sm.full[stage], n0 + c * 64, kt * kBK);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int lane = t % 32;
+  const int r0 = (t / 32) * 16 + lane / 4;  // this thread's rows r0, r0 + 8
+  const int c2 = 2 * (lane % 4);            // and columns 8 j + c2 (+ 1)
+  int stage = 0, phase = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = (tile % m_tiles) * kBM, n0 = (tile / m_tiles) * kBN;
+    float acc[kBN / 2];
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+    int prev = -1;
+    for (int kt = 0; kt < nk; ++kt) {
+      mbar_wait(&sm.full[stage], phase);
+      const uint64_t da = desc(&sm.a[stage][role * 64 * kBK], 16, 1024);
+      const uint64_t db = desc(&sm.b[stage][0][0], kChunk * 2, 1024);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kBK / 16; ++ks)  // 32 bytes along A's rows, 16 rows of B
+        wgmma_ss<kBN, 0, 1>(acc, da + ((ks * 32) >> 4), db + ((ks * 16 * 128) >> 4), 1);
+      wgmma_commit();
+      if (prev >= 0) {
+        wgmma_wait<1>();  // the previous stage's group is done: free it
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&sm.empty[prev]);
+      }
+      prev = stage;
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[prev]);
+
+    // epilogue: the previous tile's stores have read the shared tile, then
+    // bf16 pairs into the 128-byte swizzle (chunk j / 8, 16-byte group j % 8
+    // of row r at (j % 8) ^ (r % 8)), then TMA stores of the 64-row slab
+    if (t == 0) bulk_wait_read();
+    bar_sync(1 + role, 128);
+    bf16* c_s = &sm.c[role][0][0];
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        *reinterpret_cast<__nv_bfloat162*>(
+            c_s + (j / 8) * kChunk + r * 64 + (((j % 8) ^ (r & 7)) * 8) + c2) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+    fence_proxy_async();
+    bar_sync(1 + role, 128);
+    if (t == 0) {
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+        tma_store_2d(&c_map, &sm.c[role][c][0], n0 + c * 64, m0 + role * 64);
+      bulk_commit();
+    }
+  }
+  if (t == 0) bulk_wait();
+}
+
+template <int kBN>
+cudaError_t launch(const void* x, const void* w, void* out, int M, int K, int N,
+                   cudaStream_t st) {
+  // x [M, K] in boxes of 64 K x 128 rows; w [K, N] and out [M, N] in boxes
+  // of 64 columns x 64 rows; all in the 128-byte swizzle
+  CUtensorMap a_map, b_map, c_map;
+  const uint64_t a_dims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
+  const uint64_t b_dims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K)};
+  const uint64_t c_dims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(M)};
+  const uint64_t a_stride[1] = {static_cast<uint64_t>(K) * 2};
+  const uint64_t n_stride[1] = {static_cast<uint64_t>(N) * 2};
+  const uint32_t a_box[2] = {kBK, kBM}, bc_box[2] = {64, 64};
+  constexpr auto kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr auto kSw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!tensor_map(&a_map, kBf16, 2, x, a_dims, a_stride, a_box, kSw) ||
+      !tensor_map(&b_map, kBf16, 2, w, b_dims, n_stride, bc_box, kSw) ||
+      !tensor_map(&c_map, kBf16, 2, out, c_dims, n_stride, bc_box, kSw))
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<kBN>();
+  cudaError_t err = allow_smem(gemm_wgmma_kernel<kBN>, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidValue;
+  gemm_wgmma_kernel<kBN><<<tiles < sms ? tiles : sms, kThreads, smem, st>>>(a_map, b_map,
+                                                                           c_map, M, N, K);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
 // x [M,K], w [K,N], out [M,N], all in one dtype (DTYPE_F32 or DTYPE_BF16),
-// contiguous, on the stream's device.  Returns the CUDA error code of the
-// launch (0 on success).
-extern "C" int gemm_cim(int dtype, const void* x, const void* w, void* out, int M, int K,
-                        int N, void* stream) {
+// contiguous, on the stream's device.  `route` is the wrapper's choice and
+// the kernel launched: ROUTE_WGMMA takes bf16 with K and N multiples of 8
+// and 16-byte aligned x, w and out, in output tiles of 128 x `block_n`
+// columns (128 or 256); ROUTE_TILE takes either dtype at any shape
+// (`block_n` unused).  Inputs the route cannot take are refused with
+// cudaErrorInvalidValue, nothing launched.  Returns the CUDA error code of
+// the launch (0 on success).
+extern "C" int gemm_cim(int dtype, int route, int block_n, const void* x, const void* w,
+                        void* out, int M, int K, int N, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == ROUTE_WGMMA) {
+    if (dtype != DTYPE_BF16 || K % 8 != 0 || N % 8 != 0 || !aligned16(x) || !aligned16(w) ||
+        !aligned16(out))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (block_n == 256) return static_cast<int>(wg::launch<256>(x, w, out, M, K, N, st));
+    if (block_n == 128) return static_cast<int>(wg::launch<128>(x, w, out, M, K, N, st));
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (route != ROUTE_TILE) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_BF16) {
     const int vec = K % 8 == 0 && N % 8 == 0 && aligned16(x) && aligned16(w);
     cudaError_t err = allow_smem(gemm_bf16, kSmemBf16);

@@ -46,13 +46,13 @@ SIGNATURES = {
         [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P],
     "packed_prefill_attention":
         [I, I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P],
-    "gemv_int8": [I, I, P, P, P, P, P, I, I, I, I, I, P],
+    "gemv_int8": [I, I, I, P, P, P, P, P, P, I, I, I, I, I, P],
     "paged_decode_attention_q4":
         [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P],
     "flash_attention": [I, I, P, P, P, P, I, I, I, I, I, I, I, F, P],
     "decode_attention": [I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
     "ssd_chunk": [I, P, P, P, P, P, P, P, I, I, I, I, I, P],
-    "gemm_cim": [I, P, P, P, I, I, I, P],
+    "gemm_cim": [I, I, I, P, P, P, I, I, I, P],
 }
 
 _lock = threading.Lock()
@@ -175,6 +175,11 @@ def function(name: str):
 def check_cuda(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def aligned16(*tensors) -> bool:
+    """Whether every base address is 16-byte aligned, as TMA needs."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def check_tensors(name: str, tensors: Sequence[torch.Tensor],

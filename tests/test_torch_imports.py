@@ -1,5 +1,5 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX, anything of the JAX package ``repro`` or the
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and not ``scripts/torch_phase_ab.py`` imports JAX, anything of the JAX package ``repro`` or the
 reference's top-level ``benchmarks`` folder (which imports both) — the
 card's machine has neither.  Checked on the source with ``ast``, so a
 lazy import inside a function counts too."""
@@ -11,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_phase_ab.py"]
 
 
 def _forbidden(name: str) -> bool:

@@ -292,11 +292,18 @@ def test_ops_dispatch_the_new_kernels_by_device():
 @pytest.mark.parametrize("K,N,itemsize", [(4096, 1024, 1), (12288, 4096, 1),
                                           (4096, 11008, 1), (100, 40, 4)])
 def test_gemv_chunking_covers_k(K, N, itemsize):
-    """Chunks of 16-row multiples, at most 2048 rows, covering K exactly
-    once; enough of them to give the small-N layers a wave of blocks."""
+    """Both routes' K split covers K exactly once, with enough chunks to
+    give the small-N layers a wave of blocks.  Tile: chunks of 16-row
+    multiples, at most 2048 rows (x's chunk sits in shared memory).  Tensor
+    cores: chunks of whole 64-row ring stages, (128-column tile, chunk)
+    units for a persistent grid."""
     kc, n = cuda_gemv.chunking(K, N, itemsize)
     assert kc % 16 == 0 and 0 < kc <= 2048
     assert (n - 1) * kc < K <= n * kc
     tiles = -(-N // (8 * 16 // itemsize))
     if K >= 4096:
         assert tiles * n >= 128
+    kc, n = cuda_gemv.chunking(K, N, itemsize, "wgmma")
+    assert kc % 64 == 0 and (n - 1) * kc < K <= n * kc
+    if K >= 4096:
+        assert -(-N // 128) * n >= 128

@@ -459,3 +459,38 @@ def test_prefill_bound_counts_window_pairs(monkeypatch):
     # the plain version masks every NaN-poisoned slot of the pool
     out = ref.packed_prefill_attention_ref(*args, **kw)
     assert torch.isfinite(out).all()
+
+
+def test_require_routes_takes_one_route_or_one_per_kernel():
+    """``bench`` runs B8 on both routes (its f32 row on the tile, its bf16
+    row on the tensor cores) and the other two-route kernels on the tile;
+    a count on the wrong route, or a missing one, fails."""
+    launches = {"flash_attention": 21, "packed_prefill_attention": 21,
+                "gemv": 42, "matmul": 42}
+    routes = {"flash_attention": {"wgmma": 0, "tile": 21},
+              "packed_prefill_attention": {"wgmma": 0, "tile": 21},
+              "gemv": {"wgmma": 0, "tile": 42},
+              "matmul": {"wgmma": 21, "tile": 21}}
+    want = {"matmul": {"wgmma": 21, "tile": 21}, "gemv": "tile",
+            "flash_attention": "tile", "packed_prefill_attention": "tile"}
+    chip_smoke.require_routes("bench", routes, launches, want)
+    with pytest.raises(AssertionError, match="matmul"):
+        chip_smoke.require_routes("bench", routes, launches, "tile")
+    routes["gemv"] = {"wgmma": 1, "tile": 41}
+    with pytest.raises(AssertionError, match="gemv"):
+        chip_smoke.require_routes("bench", routes, launches, want)
+    idle = {name: 0 for name in launches}
+    chip_smoke.require_routes("serve", {n: {"wgmma": 0, "tile": 0}
+                                        for n in idle}, idle, "wgmma")
+
+
+def test_phase_ab_refuses_a_tree_without_chip_smoke(tmp_path):
+    """``scripts/torch_phase_ab.py`` runs a phase only from checkouts that
+    hold ``chip_smoke.py``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_phase_ab", ROOT / "scripts" / "torch_phase_ab.py")
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    with pytest.raises(SystemExit, match="no chip_smoke.py"):
+        ab.main(["--phase", "serve_quantized", "--trees", str(tmp_path)])
