@@ -12,9 +12,10 @@ Phases, one JSON line each:
 2. ``build``   — every kernel compiled from ``src/repro_torch/csrc`` by
    ``nvcc`` (one process per source, all started together), with seconds,
    and the registers, stack and spill bytes ``-Xptxas -v`` reported for
-   every kernel of B5's, B2's, B3's and B8's sources in that build; the
-   tensor-core kernels may not spill, and B8's must be given 168 registers
-   a thread (what its ``setmaxnreg`` hand-over from producer to consumers
+   every kernel of B5's, B2's, B3's, B8's, B6's and B1's sources in that
+   build; the tensor-core kernels and every kernel of B6's and B1's
+   sources may not spill, and B8's must be given 168 registers a thread
+   (what its ``setmaxnreg`` hand-over from producer to consumers
    assumes).
 3. ``kernel``  — each kernel against its plain version on the card, per
    dtype and shape set: qwen3-8b (H=32, Hkv=8, D=128) and llama2-7b (H=32,
@@ -50,7 +51,15 @@ Phases, one JSON line each:
    adds for them: B3 over int8 weights covering -127 ... 127, B8 at N =
    1024 (128-column tiles), two launches of each on the same inputs giving
    identical bits, and refusals of f32 B3 and B8, B8 at K = 41 and B3 over
-   int8 rows of 1000 bytes on the tensor cores.
+   int8 rows of 1000 bytes on the tensor cores.  B6 and B1 run one split-K
+   walk with its combine in the same launch (bf16 on the tensor cores, f32
+   on the CUDA cores; ``csrc/decode_split.cuh``), and the kernel phase
+   holds them at the edges of that walk in both dtypes and geometries
+   (``kernel_phase_decode_edges``): lengths 1, one stage +-1 and one split
+   +-1 (the split the kernel takes for that call), over an arena of 4099
+   positions and over block tables whose pages are out of order, with a
+   sentinel page inside a row and lengths ending inside a page; and two
+   launches of each on the same inputs giving identical bits.
    Tolerances: B7, whatever the input dtype, the per-element worst-case
    bound of f32 arithmetic of ``ssd_tolerance``; otherwise
    f32 |err| <= 1e-4; bf16 (see ``tolerance``) for the float
@@ -300,11 +309,19 @@ def abs_context(plain, name, args, kw):
 
 def decode_inputs(torch, H, Hkv, D, B, ctx, dtype, seed):
     """A ragged batch against a shared pool: lengths ctx, ctx-37, ...;
-    pages scattered at random; one sentinel page inside the last row's
-    length; every masked row of the pool (past a length, on the unused
-    page the sentinel clamps to) poisoned with NaN."""
+    see ``paged_inputs``."""
+    return paged_inputs(torch, H, Hkv, D,
+                        [max(ctx - 37 * b, 1) for b in range(B)], dtype, seed)
+
+
+def paged_inputs(torch, H, Hkv, D, lengths, dtype, seed):
+    """One query token per sequence of ``lengths`` against a shared pool:
+    pages scattered at random (a row's pages out of order); one sentinel
+    page inside the last row's length; every masked row of the pool (past
+    a length, on the unused page the sentinel clamps to) poisoned with
+    NaN."""
     g = torch.Generator(device=DEV).manual_seed(seed)
-    lengths = [max(ctx - 37 * b, 1) for b in range(B)]
+    B, ctx = len(lengths), max(lengths)
     W = -(-ctx // PAGE) + 2
     n_pages = sum(-(-n // PAGE) for n in lengths) + 1
     perm = torch.randperm(n_pages - 1, device=DEV, generator=g).tolist()
@@ -800,10 +817,17 @@ def flash_library(torch, args, kw):
 
 def dense_decode_inputs(torch, H, Hkv, D, B, S, dtype, seed):
     """One query token per row against a dense arena [B,S,Hkv,D]: lengths
-    S - 37 at batch 1; 1, 2049, S and 777 at batch 4.  Every row at or past
-    a length holds NaN."""
+    S - 37 at batch 1; 1, 2049, S and 777 at batch 4; see
+    ``arena_inputs``."""
+    return arena_inputs(torch, H, Hkv, D, S, [S - 37] if B == 1
+                        else [1, 2049, S, 777][:B], dtype, seed)
+
+
+def arena_inputs(torch, H, Hkv, D, S, lengths, dtype, seed):
+    """One query token per row of ``lengths`` against a dense arena
+    [B,S,Hkv,D].  Every row at or past a length holds NaN."""
     g = torch.Generator(device=DEV).manual_seed(seed)
-    lengths = [S - 37] if B == 1 else [1, 2049, S, 777][:B]
+    B = len(lengths)
     k = torch.randn((B, S, Hkv, D), device=DEV, generator=g)
     v = torch.randn((B, S, Hkv, D), device=DEV, generator=g)
     for b, n in enumerate(lengths):
@@ -1115,6 +1139,7 @@ def kernel_phase(torch, timer):
         kernel_phase_b8_d64(torch, timer, dtype)
         kernel_phase_routes(torch, timer, dtype)
         kernel_phase_b3_b8(torch, timer, dtype)
+        kernel_phase_decode_edges(torch, timer, dtype)
     require_all_agree("kernel")
 
 
@@ -1287,6 +1312,63 @@ def kernel_phase_b3_b8(torch, timer, dtype):
              route=expected_route(name, args), identical=same, ok=same)
         if not same:
             FAILED.append(f"{name} [{label}]: two launches differ")
+
+
+# an arena length that no stage (4 or 16 tokens) or split divides, and a
+# pool context that ends inside a page
+DECODE_EDGE_S = 4099
+DECODE_EDGE_CTX = 4103
+
+
+def decode_edge_lengths(torch, dtype, H, Hkv, D, capacity, longest):
+    """Lengths at the edges of B1's and B6's walk for a call whose longest
+    sequence has ``longest`` tokens: 1, one stage (a warp's chunk) +-1, one
+    split (the split the kernel takes for this call, ``split_for``) +-1,
+    and the longest last."""
+    from repro_torch.kernels import decode_attention as da
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p = da.plan(dtype, D, H // Hkv, Hkv, 8, capacity, sms)
+    w, sp = p.warp_tokens, da.split_for(p, longest, Hkv)
+    return [1, w - 1, w, w + 1, sp - 1, sp, sp + 1, longest], w, sp
+
+
+def kernel_phase_decode_edges(torch, timer, dtype):
+    """B6 and B1 at the edges of their walk, at both models' geometry: the
+    lengths of ``decode_edge_lengths`` over an arena of 4099 positions (no
+    multiple of a stage) and over a pool whose block tables list pages out
+    of order, with a sentinel page inside the last row and lengths that end
+    inside a page; then two launches of each on the same inputs, which must
+    give the same bits (the in-kernel combine sums in split order and each
+    launch leaves its counters at zero).  Seeds of their own, so the other
+    checks' inputs stay as they were."""
+    seed = 4000 + 100 * (dtype == torch.bfloat16)
+    fns = kernel_functions()
+    for model, (H, Hkv, D) in GEOMS.items():
+        S = DECODE_EDGE_S
+        lengths, w, sp = decode_edge_lengths(torch, dtype, H, Hkv, D, S, S)
+        seed += 1
+        dense = arena_inputs(torch, H, Hkv, D, S, lengths, dtype, seed)
+        check_kernel(torch, timer, "decode_attention", dense, {},
+                     f"{model} edges S={S} stage={w} split={sp} "
+                     f"lengths={lengths}", timed=False)
+        ctx = DECODE_EDGE_CTX
+        W = -(-ctx // PAGE) + 2
+        lengths, w, sp = decode_edge_lengths(torch, dtype, H, Hkv, D,
+                                             W * PAGE, ctx)
+        seed += 1
+        paged = paged_inputs(torch, H, Hkv, D, lengths, dtype, seed)
+        check_kernel(torch, timer, "paged_decode_attention", paged, {},
+                     f"{model} edges pages out of order, stage={w} "
+                     f"split={sp} lengths={lengths}", timed=False)
+        for name, args in (("decode_attention", dense),
+                           ("paged_decode_attention", paged)):
+            a, b = fns[name](*args), fns[name](*args)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(a, b))
+            label = f"{model} edges, " + shapes_label(args, {})
+            emit("repeat", name=name, inputs=label, identical=same, ok=same)
+            if not same:
+                FAILED.append(f"{name} [{label}]: two launches differ")
 
 
 def require_all_agree(phase: str) -> None:
@@ -1628,6 +1710,10 @@ ROUTED = ("flash_attention", "packed_prefill_attention", "gemv", "matmul")
 SOURCE_OF = {"flash_attention": "flash_attention",
              "packed_prefill_attention": "packed_prefill_attention",
              "gemv": "gemv_int8", "matmul": "gemm_cim"}
+
+
+# the sources none of whose kernels may spill (B6's and B1's)
+NO_SPILL = ("decode_attention", "paged_decode_attention")
 
 
 def route_counts():
@@ -2318,15 +2404,17 @@ def main() -> int:
                              f"sm_{cap[0]}{cap[1]}")
     t0 = time.monotonic()
     built = _build.build_all()
-    ptxas = {SOURCE_OF[n]: _build.ptxas_usage(SOURCE_OF[n]) for n in ROUTED}
+    ptxas = {src: _build.ptxas_usage(src)
+             for src in [SOURCE_OF[n] for n in ROUTED] + list(NO_SPILL)}
     emit("build", seconds=time.monotonic() - t0, compiled=built, ptxas=ptxas)
-    # the tensor-core kernels hold their accumulators in registers: a spill
-    # there is a design fault (the CUDA-core tile's are reported only)
-    spilled = [r["kernel"] for rows in ptxas.values() for r in rows
-               if "wgmma_kernel" in r["kernel"]
+    # the tensor-core kernels, and B1's and B6's walks, hold their
+    # accumulators in registers: a spill there is a design fault (the
+    # CUDA-core tiles' are reported only)
+    spilled = [r["kernel"] for src, rows in ptxas.items() for r in rows
+               if ("wgmma_kernel" in r["kernel"] or src in NO_SPILL)
                and (r["spill_stores"] or r["spill_loads"])]
     if spilled:
-        raise AssertionError(f"tensor-core kernels spill registers: "
+        raise AssertionError(f"kernels that may not spill spill registers: "
                              f"{spilled}")
     # B8's producer hands 128 of its registers a thread to the consumers
     # (setmaxnreg 40 -> 232): that needs the launch's 168 a thread, the most

@@ -7,104 +7,89 @@
 // decode step of every layer (models/attention.py attn_decode, whose
 // reference masks with s <= pos or pos >= S, i.e. s < min(pos + 1, S)).
 //
-// What bounds it on the H100: bytes.  A decode step reads every valid K/V
-// row of the batch once and does 4*D flops per row and query head, far
-// below the ~295 flops per byte at which the tensor cores would bind.
-//
-// Layout: the split-K walk of the paged kernel (decode_split.cuh), with the
-// arena row of token t of sequence b at b * S + t, and its combine pass
-// (paged_decode_combine.cuh, with one S-token "page" per sequence).  At
-// B = 4 and Hkv = 8 one block per (b, kv head) would fill 32 of 132 SMs;
-// splitting each sequence's walk into `split`-token pieces gives every SM
-// several blocks.  Splits at or past lengths[b] return at once and are not
-// read by the combine pass.  Rows at or past lengths[b] (stale contents of
-// a retired request, or never written) are never loaded: their staged K/V
-// are zero and their p is 0, so nothing they hold reaches the output.
+// What bounds it on the H100: bytes (see decode_split.cuh, whose split-K
+// walk, persistent grid and in-kernel combine it runs).  Here the row of
+// token t of sequence b is the arena row b * S + t: one kv head's rows of
+// a sequence are a strided box of tokens x D, each row a run of 16-byte
+// pieces that cp.async copies straight into a warp's ring.  Rows at or past
+// lengths[b] (stale contents of a retired request, or never written) are
+// never loaded.
 #include "common.cuh"
 #include "decode_split.cuh"
-#include "paged_decode_combine.cuh"
 
 namespace {
 
 using decode_split::kThreads;
-using decode_split::kTok;
 
-template <typename T, int kD>
-__global__ void __launch_bounds__(kThreads)
-dense_decode_partial(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ lengths,
-                     float* __restrict__ part_acc, float* __restrict__ part_ml, int H,
-                     int Hkv, int S, int split, float scale) {
-  const int b = blockIdx.x;
-  const int first = b * S;                 // arena row of token 0 of sequence b
-  auto locate = [=](int t) { return first + t; };
-  decode_split::walk<T, kD>(q, k, v, locate, min(lengths[b], S), part_acc, part_ml, H,
-                            Hkv, split, scale);
-}
-
-template <typename T, int kD>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* lengths,
-                   void* out, void* part_acc, void* part_ml, int B, int H, int Hkv,
-                   int S, int split, int n_split, float scale, cudaStream_t stream) {
-  const size_t smem = decode_split::smem_bytes<kD>(H / Hkv);
-  cudaError_t err = allow_smem(dense_decode_partial<T, kD>, smem);
-  if (err != cudaSuccess) return err;
-  dense_decode_partial<T, kD><<<dim3(B, Hkv, n_split), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(lengths), static_cast<float*>(part_acc),
-      static_cast<float*>(part_ml), H, Hkv, S, split, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  // the combine pass sees the arena as one S-token page per sequence
-  paged_decode_combine<T><<<dim3(B, Hkv), kThreads, 0, stream>>>(
-      static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
-      static_cast<const int*>(lengths), static_cast<T*>(out), H, Hkv, kD, S, 1, split,
-      n_split);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
-                     const void* lengths, void* out, void* part_acc, void* part_ml,
-                     int B, int H, int Hkv, int S, int split, int n_split, float scale,
-                     cudaStream_t st) {
-  // the head dims of the configurations served: 16 (reduced), 128 (full)
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, lengths, out, part_acc, part_ml, B, H, Hkv, S, split,
-                           n_split, scale, st);
-    case 128:
-      return launch<T, 128>(q, k, v, lengths, out, part_acc, part_ml, B, H, Hkv, S, split,
-                            n_split, scale, st);
-    default:
-      return cudaErrorInvalidValue;
+struct ArenaRows {
+  int S;
+  __device__ __forceinline__ long long operator()(int b, int t) const {
+    return static_cast<long long>(b) * S + t;
   }
+};
+
+template <typename T, int kD, int kG>
+__global__ void __launch_bounds__(kThreads, 2)
+dense_decode_kernel(decode_split::Args a, ArenaRows rows) {
+  decode_split::run<T, kD, kG>(a, rows);
 }
+
+struct Launch {
+  decode_split::Args a;
+  ArenaRows rows;
+  int quantum, stages, grid;
+  cudaStream_t stream;
+  template <typename T, int kD, int kG>
+  cudaError_t operator()() const {
+    if (!decode_split::plan_fits<T, kD, kG>(a, quantum, stages)) return cudaErrorInvalidValue;
+    // the ring is dynamic shared memory; with the block's static arrays it
+    // is more than the default 48 KB
+    cudaError_t err = cudaFuncSetAttribute(dense_decode_kernel<T, kD, kG>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           decode_split::kRingBytes);
+    if (err != cudaSuccess) return err;
+    dense_decode_kernel<T, kD, kG><<<grid, kThreads, decode_split::kRingBytes, stream>>>(a, rows);
+    return cudaGetLastError();
+  }
+};
 
 }  // namespace
 
-// q [B,H,D]; k_cache/v_cache [B,S,Hkv,D]; lengths [B] int32; out [B,H,D];
-// part_acc [B,Hkv,n_split,G,D] and part_ml [B,Hkv,n_split,G,2] f32 scratch,
-// n_split = ceil(S / split), split a multiple of 32 tokens; D 16 or 128.
-// All contiguous, all on the stream's device.  Returns the CUDA error code
-// of the launches (0 on success).
+// q [B,H,D]; k_cache/v_cache [B,S,Hkv,D] (16-byte aligned); lengths [B]
+// int32; out [B,H,D]; part_acc [B,Hkv,n_split_max,G,D] and part_ml
+// [B,Hkv,n_split_max,G,2] f32 scratch, counters [B,Hkv] uint32 scratch
+// that is zero (and left zero); the plan of kernels/decode_attention.py
+// (quantum, stages, target, n_split_max, grid); D 16 or 128, G = H / Hkv
+// 1 or 4, B at most 512.  All contiguous, all on the stream's
+// device.  Returns the CUDA error code of the launch (0 on success).
 extern "C" int decode_attention(int dtype, const void* q, const void* k_cache,
                                 const void* v_cache, const void* lengths, void* out,
-                                void* part_acc, void* part_ml, int B, int H, int Hkv,
-                                int D, int S, int split, int n_split, float scale,
+                                void* part_acc, void* part_ml, void* counters, int B,
+                                int H, int Hkv, int D, int S, int quantum, int stages,
+                                int target, int n_split_max, int grid, float scale,
                                 void* stream) {
   if (B <= 0) return cudaSuccess;
-  if (Hkv <= 0 || H % Hkv != 0 || S <= 0 || split <= 0 || split % kTok != 0 ||
-      n_split != (S + split - 1) / split)
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32)
-    return static_cast<int>(launch_d<float>(D, q, k_cache, v_cache, lengths, out,
-                                            part_acc, part_ml, B, H, Hkv, S, split,
-                                            n_split, scale, st));
-  if (dtype == DTYPE_BF16)
-    return static_cast<int>(launch_d<__nv_bfloat16>(D, q, k_cache, v_cache, lengths, out,
-                                                    part_acc, part_ml, B, H, Hkv, S,
-                                                    split, n_split, scale, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (Hkv <= 0 || H % Hkv != 0 || S <= 0 || grid <= 0) return cudaErrorInvalidValue;
+  Launch f;
+  f.a = decode_split::Args{q,
+                           k_cache,
+                           v_cache,
+                           static_cast<const int*>(lengths),
+                           out,
+                           static_cast<float*>(part_acc),
+                           static_cast<float*>(part_ml),
+                           static_cast<unsigned*>(counters),
+                           B,
+                           H,
+                           Hkv,
+                           S,
+                           target,
+                           n_split_max,
+                           scale};
+  f.rows = ArenaRows{S};
+  f.quantum = quantum;
+  f.stages = stages;
+  f.grid = grid;
+  f.stream = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(decode_split::dispatch(dtype, D, H / Hkv, f));
 }

@@ -1,5 +1,5 @@
-// Second pass of the split-K paged decode kernels (paged_decode_attention.cu,
-// paged_decode_attention_q4.cu): one block per (sequence b, kv head h)
+// Second pass of the split-K int4 paged decode kernel
+// (paged_decode_attention_q4.cu): one block per (sequence b, kv head h)
 // rescales the splits that hold tokens to their common max, sums them in
 // order (deterministic, no atomics), divides by l (clamped at 1e-30, as the
 // reference does) and writes the result in the output dtype.

@@ -8,23 +8,162 @@ They replace the Pallas ``paged_decode_attention``,
 (src/repro/kernels/decode_attention.py:186, :313, :96). The source files state
 what bounds each kernel and how its layout answers that; ``kernels/ref.py``
 holds the plain PyTorch versions the CPU path and the card's checks use.
+
+The float kernels (B1, B6) share one walk (``csrc/decode_split.cuh``): a
+persistent grid whose blocks take (sequence, kv head, split) units in
+turn, each warp streaming its chunks of K/V through a ring of 16-byte
+asynchronous copies, and an in-kernel combine, so a call is one launch.
+``plan`` fixes what the host decides (the split's quantum, the ring's
+stages, the grid, the scratch) from the shapes, the capacity and the SM
+count, never from the lengths; ``split_for`` is the rule by which the
+kernel cuts the call's longest sequence on the card.  Their partials and
+per-(sequence, kv head) arrival counters live in scratch kept per device
+(``scratch``, grown only); the counters are left at zero by every launch,
+so the scratch serves one stream at a time.  The int4 kernel (B4) keeps
+its own two-pass split-K walk and per-call scratch.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-# tokens of one sequence per block of the first pass (a multiple of the
-# kernel's 32-token step): short enough that a low-batch decode still puts
-# several blocks on every SM
+# B4's tokens of one sequence per block of its first pass (a multiple of
+# its 32-token step)
 _SPLIT = 128
-# head dims the kernel is instantiated for: the reduced (16) and full (128)
-# configurations
+# head dims the kernels are instantiated for: the reduced (16) and full
+# (128) configurations
 _HEAD_DIMS = (16, 128)
+# B1/B6: query heads per kv head the kernels are instantiated for
+# (llama2-7b, qwen3-8b: full and reduced)
+_GROUPS = (1, 4)
+# B1/B6, as csrc/decode_split.cuh has them
+_WARPS = 4              # warps a block (kWarps)
+_RING_BYTES = 64 << 10  # the warps' rings (kRingBytes)
+_MAX_BATCH = 512        # sequences a call (kMaxBatch)
+_MAX_WARP_TOKENS = 64   # tokens a chunk at most (one bit each in a mask)
+# units the longest sequence is cut into, per SM, and persistent blocks
+# per SM (64 KB of ring each; two are resident, the third starts as one
+# finishes)
+_UNITS_PER_SM = 1
+_BLOCKS_PER_SM = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """What the host fixes for one B1/B6 call.
+
+    ``quantum``: tokens of one round of the block's warps, kWarps chunks
+    of ``warp_tokens`` (bf16: 8 KB of K and V a chunk, at most 64 tokens;
+    f32: 4 KB); a split is a multiple of it.  ``stages``: chunks a warp
+    keeps in its ring (bf16 2, f32 4; 64 KB of rings a block either way).
+    ``target``: units the longest sequence is cut into, about
+    (``split_for``).
+    ``n_split_max``: the most splits any sequence of the call can have,
+    which sizes the scratch.  ``grid``: persistent blocks, at most as many
+    as there can be units, at most ``_BLOCKS_PER_SM`` an SM."""
+    warp_tokens: int
+    quantum: int
+    stages: int
+    target: int
+    n_split_max: int
+    grid: int
+    acc_shape: Tuple[int, ...]
+    ml_shape: Tuple[int, ...]
+    counters: int
+
+    @property
+    def n_acc(self) -> int:
+        return math.prod(self.acc_shape)
+
+    @property
+    def n_ml(self) -> int:
+        return math.prod(self.ml_shape)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(dtype: torch.dtype, D: int, G: int, Hkv: int, B: int,
+         capacity: int, sms: int) -> DecodePlan:
+    """The plan of a call over ``B`` sequences of at most ``capacity``
+    tokens (the arena's S, or the block table's W * P) on a card of
+    ``sms`` SMs.  The split ``split_for`` picks for a longest length L is
+    ``quantum`` x max(1, round(L Hkv / (target quantum))), so a sequence
+    has at most ceil(3 target / (2 Hkv)) splits (and at most
+    ceil(capacity / quantum))."""
+    item = dtype.itemsize
+    stages = 2 if item == 2 else 4           # Geom::kStages
+    slot = _RING_BYTES // (_WARPS * stages)  # Geom::kSlotBytes
+    warp_tokens = min(_MAX_WARP_TOKENS, slot // (2 * D * item))
+    quantum = _WARPS * warp_tokens
+    target = max(1, round(_UNITS_PER_SM * sms))
+    n_split_max = max(1, min(-(-3 * target // (2 * Hkv)),
+                             -(-capacity // quantum)))
+    grid = max(1, min(B * Hkv * n_split_max, _BLOCKS_PER_SM * sms))
+    return DecodePlan(warp_tokens, quantum, stages, target, n_split_max,
+                      grid, (B, Hkv, n_split_max, G, D),
+                      (B, Hkv, n_split_max, G, 2), B * Hkv)
+
+
+def split_for(p: DecodePlan, len_max: int, Hkv: int) -> int:
+    """The split the kernel takes when the call's longest sequence has
+    ``len_max`` tokens (``split_for`` of csrc/decode_split.cuh): the
+    multiple of the quantum nearest to the one that cuts that sequence
+    into ``target`` units over its kv heads, at least one quantum."""
+    unit = p.target * p.quantum
+    return max(1, (len_max * Hkv + unit // 2) // unit) * p.quantum
+
+
+# device -> (partials, (m, l) pairs, int32 arrival counters), grown as
+# calls need
+_scratch: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor,
+                                   torch.Tensor]] = {}
+_sms: Dict[torch.device, int] = {}
+
+
+def scratch(device: torch.device, p: DecodePlan):
+    """The device's (partials, (m, l) pairs, counters) scratch for plan
+    ``p``: f32 and zeroed int32, allocated once and only grown."""
+    n_acc, n_ml = p.n_acc, p.n_ml
+    acc, ml, counters = _scratch.get(device, (None, None, None))
+    if acc is None or acc.numel() < n_acc:
+        acc = torch.empty(max(n_acc, 1), dtype=torch.float32, device=device)
+    if ml is None or ml.numel() < n_ml:
+        ml = torch.empty(max(n_ml, 1), dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < p.counters:
+        counters = torch.zeros(max(p.counters, 1), dtype=torch.int32,
+                               device=device)
+    _scratch[device] = (acc, ml, counters)
+    return acc, ml, counters
+
+
+def _sm_count(device: torch.device) -> int:
+    if device not in _sms:
+        _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sms[device]
+
+
+def _float_call(name, q, k, v, capacity, Hkv):
+    """Checks shared by B1 and B6 (after ``_check_query``), then their
+    plan, scratch and output."""
+    B, H, D = q.shape
+    G = H // Hkv
+    if G not in _GROUPS or B > _MAX_BATCH:
+        raise ValueError(f"{name}: {H} query heads over {Hkv} kv heads "
+                         f"(groups of {_GROUPS}), batch {B} (at most "
+                         f"{_MAX_BATCH})")
+    _build.check_tensors(name, [q, k, v], q.dtype, q.device)
+    if not _build.aligned16(q, k, v):
+        raise ValueError(f"{name}: q and the K/V caches must be 16-byte "
+                         "aligned")
+    p = plan(q.dtype, D, G, Hkv, B, capacity, _sm_count(q.device))
+    return p, scratch(q.device, p), torch.empty_like(q)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
@@ -43,15 +182,16 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
                          f"{tuple(k_pages.shape)} v {tuple(v_pages.shape)} "
                          f"(head dim one of {_HEAD_DIMS})")
     _check_tables(name, block_tables, lengths, B, q.device)
-    _build.check_tensors(name, [q, k_pages, v_pages], q.dtype, q.device)
+    W = block_tables.shape[1]
+    p, (acc, ml, counters), out = _float_call(name, q, k_pages, v_pages,
+                                              W * P, Hkv)
     fn = _build.function(name)
-    out, part_acc, part_ml, n_split = _outputs(q, Hkv, block_tables.shape[1]
-                                               * P)
     err = fn(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
              v_pages.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
-             out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), B, H,
-             Hkv, D, n_pages, P, block_tables.shape[1], _SPLIT, n_split,
-             1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
+             out.data_ptr(), acc.data_ptr(), ml.data_ptr(),
+             counters.data_ptr(), B, H, Hkv, D, n_pages, P, W, p.quantum,
+             p.stages, p.target, p.n_split_max, p.grid, 1.0 / math.sqrt(D),
+             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_cuda(name, err)
     paged_decode_attention.launches += 1
     return out
@@ -117,14 +257,15 @@ def decode_attention(q, k_cache, v_cache, lengths):
     if lengths.shape != (B,):
         raise ValueError(f"{name}: lengths {tuple(lengths.shape)} for batch "
                          f"{B}")
-    _build.check_tensors(name, [q, k_cache, v_cache], q.dtype, q.device)
     _build.check_tensors(name, [lengths], torch.int32, q.device)
+    p, (acc, ml, counters), out = _float_call(name, q, k_cache, v_cache, S,
+                                              Hkv)
     fn = _build.function(name)
-    out, part_acc, part_ml, n_split = _outputs(q, Hkv, S)
     err = fn(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
              v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             part_acc.data_ptr(), part_ml.data_ptr(), B, H, Hkv, D, S, _SPLIT,
-             n_split, 1.0 / math.sqrt(D),
+             acc.data_ptr(), ml.data_ptr(), counters.data_ptr(), B, H, Hkv,
+             D, S, p.quantum, p.stages, p.target, p.n_split_max, p.grid,
+             1.0 / math.sqrt(D),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_cuda(name, err)
     decode_attention.launches += 1
@@ -147,8 +288,8 @@ def _check_tables(name, block_tables, lengths, B, device):
 
 
 def _outputs(q, Hkv, span):
-    """The output and the split-K scratch of the three kernels: partial
-    accumulators [B,Hkv,n_split,G,D] and (m, l) pairs, f32."""
+    """B4's output and split-K scratch: partial accumulators
+    [B,Hkv,n_split,G,D] and (m, l) pairs, f32."""
     B, H, D = q.shape
     n_split = -(-span // _SPLIT)
     f32 = dict(dtype=torch.float32, device=q.device)

@@ -83,17 +83,29 @@ def test_flash_plain_builds_no_square_scores(monkeypatch):
     assert all(m <= 256 + 64 for _, m in seen)
 
 
-@pytest.mark.parametrize("S,H,Hkv", [(300, 4, 2), (300, 4, 4), (77, 8, 1)])
-def test_decode_plain_matches_pallas(S, H, Hkv):
+# lengths at the edges of the card's walk at D = 16 (csrc/decode_split.cuh):
+# 1, one stage (32 tokens in f32, 64 in bf16) +-1, one split (a multiple of
+# the 128- or 256-token quantum) +-1, and the whole arena
+_EDGE_LENGTHS = (1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 255, 256, 257)
+
+
+@pytest.mark.parametrize("S,H,Hkv,lengths", [
+    pytest.param(300, 4, 2, None, id="300-4-2"),
+    pytest.param(300, 4, 4, None, id="300-4-4"),
+    pytest.param(77, 8, 1, None, id="77-8-1"),
+    pytest.param(261, 4, 1, _EDGE_LENGTHS + (261,), id="261-4-1-edges"),
+    pytest.param(261, 4, 4, _EDGE_LENGTHS + (261,), id="261-4-4-edges")])
+def test_decode_plain_matches_pallas(S, H, Hkv, lengths):
     """A cache length the Pallas tile (128) does not divide; lengths 1, a
-    ragged value and S; every entry at or past a row's length poisoned
-    with +-99, which must not move the output."""
-    B, D = 3, 16
+    ragged value and S, or the walk's edge lengths; every entry at or past
+    a row's length poisoned with +-99, which must not move the output."""
+    D = 16
+    lengths = np.array(lengths or (1, S // 2 + 3, S), np.int32)
+    B = len(lengths)
     rng = np.random.default_rng(S + H + Hkv)
     q = rng.standard_normal((B, H, D)).astype(np.float32)
     kc = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
     vc = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
-    lengths = np.array([1, S // 2 + 3, S], np.int32)
     want = np.asarray(jops.decode_attention(
         jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
         jnp.asarray(lengths), bs=128))

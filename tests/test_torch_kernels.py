@@ -29,12 +29,18 @@ def _t(a):
 
 # -- paged decode attention ------------------------------------------------------
 
-def _decode_case(rng, H, Hkv, D, P):
-    """Ragged lengths over a shared pool, one sentinel page inside a row's
-    length, unused pages (including the one a sentinel clamps to) and the
-    rows past each length poisoned with NaN."""
-    B, W, n_pages = 3, 5, 20
-    lengths = np.array([W * P, 2 * P + 1, 3], np.int32)
+def _decode_case(rng, H, Hkv, D, P, lengths=None):
+    """Ragged lengths over a shared pool (by default W P, 2 P + 1 and 3 over
+    5 pages a row), one sentinel page inside a row's length, unused pages
+    (including the one a sentinel clamps to) and the rows past each length
+    poisoned with NaN."""
+    if lengths is None:
+        B, W, n_pages = 3, 5, 20
+        lengths = np.array([W * P, 2 * P + 1, 3], np.int32)
+    else:
+        lengths = np.array(lengths, np.int32)
+        B, W = len(lengths), -(-int(lengths.max()) // P) + 1
+        n_pages = sum(-(-int(n) // P) for n in lengths) + 4
     order = list(rng.permutation(n_pages - 1))
     bt = np.full((B, W), n_pages, np.int32)
     kp = rng.standard_normal((n_pages, P, Hkv, D)).astype(np.float32)
@@ -59,12 +65,20 @@ def _decode_case(rng, H, Hkv, D, P):
     return q, kp, vp, poisoned_k, poisoned_v, bt, lengths
 
 
-@pytest.mark.parametrize("P", [4, 8])
+# lengths at the edges of the card's walk (csrc/decode_split.cuh), longest
+# first (the sentinel page sits inside it): stages of 32/64 tokens +-1,
+# splits of 128/256 +-1, lengths ending inside a 16-token page
+_EDGE_LENGTHS = (300, 1, 31, 33, 63, 65, 127, 129, 255, 257)
+
+
+@pytest.mark.parametrize("P,lengths", [
+    pytest.param(4, None, id="4"), pytest.param(8, None, id="8"),
+    pytest.param(16, _EDGE_LENGTHS, id="16-edges")])
 @pytest.mark.parametrize("D", [16, 32])
 @pytest.mark.parametrize("H,Hkv", [(4, 4), (4, 1), (8, 2)])
-def test_paged_decode_ref_matches_pallas(H, Hkv, D, P):
+def test_paged_decode_ref_matches_pallas(H, Hkv, D, P, lengths):
     rng = np.random.default_rng(H * 1000 + Hkv * 100 + D + P)
-    q, kp, vp, pk, pv, bt, lengths = _decode_case(rng, H, Hkv, D, P)
+    q, kp, vp, pk, pv, bt, lengths = _decode_case(rng, H, Hkv, D, P, lengths)
     want = np.asarray(jax_paged_decode(
         jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
         jnp.asarray(lengths), interpret=True))
