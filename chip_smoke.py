@@ -12,11 +12,11 @@ Phases, one JSON line each:
 2. ``build``   — every kernel compiled from ``src/repro_torch/csrc`` by
    ``nvcc`` (one process per source, all started together), with seconds,
    and the registers, stack and spill bytes ``-Xptxas -v`` reported for
-   every kernel of B5's, B2's, B3's, B8's, B6's and B1's sources in that
-   build; the tensor-core kernels and every kernel of B6's and B1's
-   sources may not spill, and B8's must be given 168 registers a thread
-   (what its ``setmaxnreg`` hand-over from producer to consumers
-   assumes).
+   every kernel of B5's, B2's, B3's, B8's, B7's, B6's, B1's and B4's
+   sources in that build; the tensor-core kernels and every kernel of
+   B7's, B6's, B1's and B4's sources may not spill, and B8's must be given
+   168 registers a thread (what its ``setmaxnreg`` hand-over from producer
+   to consumers assumes).
 3. ``kernel``  — each kernel against its plain version on the card, per
    dtype and shape set: qwen3-8b (H=32, Hkv=8, D=128) and llama2-7b (H=32,
    Hkv=32) geometry, page size 16, contexts 512 and 4096; paged decode
@@ -59,8 +59,17 @@ Phases, one JSON line each:
    +-1 (the split the kernel takes for that call), over an arena of 4099
    positions and over block tables whose pages are out of order, with a
    sentinel page inside a row and lengths ending inside a page; and two
-   launches of each on the same inputs giving identical bits.
-   Tolerances: B7, whatever the input dtype, the per-element worst-case
+   launches of each on the same inputs giving identical bits.  B4 runs
+   the same walk over packed int4 pages (its own stage and split) and is
+   held at the same edges.  B7 has two routes (bf16 at P = 64 on the
+   tensor cores, each f32 operand split into three bf16 pieces; f32 and
+   other head dims on the CUDA-core tile): its checks assert the route
+   their inputs name, its entry point must refuse f32, P = 32 and N = 100
+   on the tensor cores, and ``kernel_phase_ssd_edges`` holds it at Q = 1,
+   24, 200 and 256 over 1 and 33 chunks, over chunks whose cs spans 100 in
+   every head, and two launches to the same bits.
+   Tolerances: B7, whatever the input dtype and route, the per-element
+   worst-case
    bound of f32 arithmetic of ``ssd_tolerance``; otherwise
    f32 |err| <= 1e-4; bf16 (see ``tolerance``) for the float
    attention kernels (B1, B2, B5, B6), per
@@ -141,10 +150,11 @@ Phases, one JSON line each:
    (random seeded weights) on the dense arena (max_len 8448, max_batch 4)
    with whole-prompt prefill: after the 24-token warm-up, prompts of 8192,
    4096, 2048 and 200 tokens, 64 new tokens each, two rounds.  Each round
-   B7 must launch 64 x 4 times (every prompt, every layer) and every other
-   kernel never; B7 is re-checked at the 8192-token prompt's first-layer
-   inputs (bf16, and cast to f32), and the layout moves around it timed
-   there.  TTFT per prompt length, TPOT, decode tokens/s, weight and state
+   B7 must launch 64 x 4 times (every prompt, every layer), every launch
+   on its tensor-core route, and every other kernel never; B7 is
+   re-checked at the 8192-token prompt's first-layer inputs (bf16, and
+   cast to f32), and the layout moves around it timed there, beside the
+   tensor-core route's own bound (``ssd_route_cost``).  TTFT per prompt length, TPOT, decode tokens/s, weight and state
    bytes, peak memory, a ``profile`` line for a round and one for a
    prefill-only pass with B7's share of its device time.
 9. ``preempt`` — the same model cut to 4 layers, with a pool small enough
@@ -159,10 +169,11 @@ Phases, one JSON line each:
    top-2 logit margin, recorded as it served, is at most 1e-3.
 
 In every serve phase each kernel's plain version must be called 0 times:
-on the card nothing falls back to it.  B5, B2, B3 and B8 count their
-launches by route: ``serve``, ``serve_quantized`` (B3 among them) and both
-``serve_dense`` rounds (bf16) must launch only their tensor-core route,
-``parity`` (f32) only the CUDA-core tile, and ``bench`` as said above.
+on the card nothing falls back to it.  B5, B2, B3, B8 and B7 count their
+launches by route: ``serve``, ``serve_quantized`` (B3 among them), both
+``serve_dense`` rounds and ``serve_ssm`` (bf16) must launch only their
+tensor-core route, ``parity`` (f32) only the CUDA-core tile, and ``bench``
+as said above.
 
 Then one ``{"kernels": [...]}`` line (launches from the serve phase whose
 main path runs the kernel — ``serve_quantized`` for the GEMV and the int4
@@ -623,13 +634,21 @@ def gemv_library(torch, x, w, scale):
 # ---------------------------------------------------------------------------
 
 def q4_inputs(torch, H, Hkv, D, B, ctx, dtype, seed):
-    """B1's ragged batch (``decode_inputs``) with its pool quantized to
-    int4 per (token, kv head) and packed; the scales of every masked row
-    (past a length, on the unused page the sentinel clamps to) are NaN."""
+    """B1's ragged batch (``decode_inputs``) over packed int4 pages
+    (``q4_pages``)."""
+    return q4_pages(torch, H, Hkv, D, [max(ctx - 37 * b, 1) for b in range(B)],
+                    dtype, seed)
+
+
+def q4_pages(torch, H, Hkv, D, lengths, dtype, seed):
+    """B1's pool for ``lengths`` (``paged_inputs``: pages out of order, a
+    sentinel page inside the last row) quantized to int4 per (token, kv
+    head) and packed; the scales of every masked row (past a length, on the
+    unused page the sentinel clamps to) are NaN."""
     from repro_torch.serving.quantized_cache import (pack_int4,
                                                      quantize_token_int4)
-    q, k, v, bt, lengths = decode_inputs(torch, H, Hkv, D, B, ctx,
-                                         torch.float32, seed)
+    q, k, v, bt, lengths = paged_inputs(torch, H, Hkv, D, lengths,
+                                        torch.float32, seed)
     masked = torch.isnan(k[..., 0])
     kq, ks = quantize_token_int4(torch.nan_to_num(k))
     vq, vs = quantize_token_int4(torch.nan_to_num(v))
@@ -902,12 +921,13 @@ def arena_prefill_inputs(torch, H, Hkv, D, dtype, seed, R=DENSE_MAX_LEN):
 SSD_GEOM = dict(H=80, P=64, N=128)   # mamba2-2.7b: 80 heads of 64, state 128
 
 
-def ssd_inputs(torch, nc, H, Q, P, N, dtype, seed):
+def ssd_inputs(torch, nc, H, Q, P, N, dtype, seed, span=None):
     """x [nc,H,Q,P] and B/C [nc,Q,N] standard normal in ``dtype``; A and dt
     f32, made as ``ssm_prefill`` makes them from the init's A_log and
     dt_bias: A = -exp(log(linspace(1, 16, H))), dt = softplus(u + dt_bias)
     with u standard normal and dt_bias = softplus^-1 of a log-uniform draw
-    in [1e-3, 1e-1]."""
+    in [1e-3, 1e-1].  With ``span``, each (chunk, head)'s dt is then scaled
+    so that its cs spans exactly ``span``: sum_j dt_j |A_h| = span."""
     import math
     import torch.nn.functional as F
     g = torch.Generator(device=DEV).manual_seed(seed)
@@ -918,24 +938,45 @@ def ssd_inputs(torch, nc, H, Q, P, N, dtype, seed):
     dt = F.softplus(torch.randn((nc, H, Q), generator=g, **f32)
                     + torch.log(torch.expm1(dt0))[None, :, None])
     A = -torch.exp(torch.log(torch.linspace(1.0, 16.0, H, **f32)))
+    if span is not None:
+        dt = dt * (span / (dt.sum(-1, keepdim=True)
+                           * A.abs()[None, :, None]))
     B = torch.randn((nc, Q, N), generator=g, **f32)
     C = torch.randn((nc, Q, N), generator=g, **f32)
     return x.to(dtype), dt, A, B.to(dtype), C.to(dtype)
 
 
-def ssd_cost(x, dt, A, Bm, Cm):
-    """Bytes: every input read once, y and the states written once (f32).
-    Operations: the causal half the function needs — per chunk C B^T over
-    the Q(Q+1)/2 pairs j <= i (2 N each); per chunk and head G (dt x) over
-    those pairs (2 P each) and the state, 2 Q N P."""
+def ssd_bytes(x, dt, A, Bm, Cm):
+    """Every input read once, y and the states written once (f32)."""
     nc, H, Q, P = x.shape
     N = Bm.shape[-1]
-    el = x.element_size()
-    nbytes = ((x.numel() + Bm.numel() + Cm.numel()) * el
-              + (dt.numel() + A.numel()) * 4 + 4 * nc * H * (Q * P + N * P))
+    return ((x.numel() + Bm.numel() + Cm.numel()) * x.element_size()
+            + (dt.numel() + A.numel()) * 4 + 4 * nc * H * (Q * P + N * P))
+
+
+def ssd_cost(x, dt, A, Bm, Cm):
+    """Bytes: ``ssd_bytes``.  Operations: the causal half the function
+    needs — per chunk C B^T over the Q(Q+1)/2 pairs j <= i (2 N each); per
+    chunk and head G (dt x) over those pairs (2 P each) and the state,
+    2 Q N P."""
+    nc, H, Q, P = x.shape
+    N = Bm.shape[-1]
     pairs = Q * (Q + 1) // 2
     flops = nc * (2.0 * pairs * N + H * (2.0 * pairs * P + 2.0 * Q * N * P))
-    return bound(nbytes, flops, dtype_name(x))
+    return bound(ssd_bytes(x, dt, A, Bm, Cm), flops, dtype_name(x))
+
+
+def ssd_route_cost(x, dt, A, Bm, Cm):
+    """``ssd_bytes`` against the operations B7's tensor-core route issues
+    for the same causal half: G' x and the state as three bf16 products
+    each (the split operand's hi, mid and lo), C B^T as one, at the bf16
+    peak — the least time of that route's arithmetic."""
+    nc, H, Q, P = x.shape
+    N = Bm.shape[-1]
+    pairs = Q * (Q + 1) // 2
+    flops = nc * (2.0 * pairs * N
+                  + 3 * H * (2.0 * pairs * P + 2.0 * Q * N * P))
+    return bound(ssd_bytes(x, dt, A, Bm, Cm), flops, "bfloat16")
 
 
 def ssd_library(torch, x, dt, A, Bm, Cm):
@@ -1140,6 +1181,7 @@ def kernel_phase(torch, timer):
         kernel_phase_routes(torch, timer, dtype)
         kernel_phase_b3_b8(torch, timer, dtype)
         kernel_phase_decode_edges(torch, timer, dtype)
+        kernel_phase_ssd_edges(torch, timer, dtype)
     require_all_agree("kernel")
 
 
@@ -1223,8 +1265,9 @@ def check_route_refusals(torch, seed):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm_cim as gm
     from repro_torch.kernels import gemv_cid as gc
+    from repro_torch.kernels import ssd_scan as ss
     module = {"flash_attention": fa, "packed_prefill_attention": fa,
-              "gemv": gc, "matmul": gm}
+              "gemv": gc, "matmul": gm, "ssd_chunk": ss}
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [
         ("flash_attention", "f32 D=128", "wgmma",
@@ -1246,6 +1289,13 @@ def check_route_refusals(torch, seed):
         # rows of 1000 int8 bytes: not 16-byte aligned
         ("gemv", "bf16 x, int8 w, M=4 K=4096 N=1000", "wgmma",
          (gemv_inputs(torch, 4, 4096, 1000, bf16, seed + 8), {})),
+        # B7's tensor-core route takes bf16 at P = 64 and N a multiple of 8
+        ("ssd_chunk", "f32 P=64 N=128", "mma",
+         (ssd_inputs(torch, 1, 8, 64, 64, 128, f32, seed + 9), {})),
+        ("ssd_chunk", "bf16 P=32 N=128", "mma",
+         (ssd_inputs(torch, 1, 8, 64, 32, 128, bf16, seed + 10), {})),
+        ("ssd_chunk", "bf16 P=64 N=100", "mma",
+         (ssd_inputs(torch, 1, 8, 64, 64, 100, bf16, seed + 11), {})),
     ]
     for name, label, wrong, (args, kw) in cases:
         fn, mod = kernel_functions()[name], module[name]
@@ -1291,7 +1341,6 @@ def kernel_phase_b3_b8(torch, timer, dtype):
     check_kernel(torch, timer, "matmul", args, {},
                  f"M={GEMM_M} K=4096 N=1024, block_n "
                  f"{gm.block_n(GEMM_M, 1024, sms)}", timed=False)
-    fns = kernel_functions()
     (M, K, N), edge_kw = GEMM_EDGES[1]
     repeats = [("gemv", gemv_inputs(torch, 4, 4096, 12288, dtype, seed + 1),
                 {}),
@@ -1304,14 +1353,20 @@ def kernel_phase_b3_b8(torch, timer, dtype):
                ("matmul", gemm_inputs(torch, M, K, N, dtype, seed + 5),
                 edge_kw)]
     for name, args, kw in repeats:
-        a, b = fns[name](*args, **kw), fns[name](*args, **kw)
-        torch.cuda.synchronize()
-        same = bool(torch.equal(a, b))
-        label = shapes_label(args, kw)
-        emit("repeat", name=name, inputs=label,
-             route=expected_route(name, args), identical=same, ok=same)
-        if not same:
-            FAILED.append(f"{name} [{label}]: two launches differ")
+        check_same_bits(torch, name, args, kw, shapes_label(args, kw),
+                        route=expected_route(name, args))
+
+
+def check_same_bits(torch, name, args, kw, label, **extra):
+    """Two launches of ``name`` on the same inputs must give the same
+    bits."""
+    fn = kernel_functions()[name]
+    a, b = flat(fn(*args, **kw)), flat(fn(*args, **kw))
+    torch.cuda.synchronize()
+    same = bool(torch.equal(a, b))
+    emit("repeat", name=name, inputs=label, **extra, identical=same, ok=same)
+    if not same:
+        FAILED.append(f"{name} [{label}]: two launches differ")
 
 
 # an arena length that no stage (4 or 16 tokens) or split divides, and a
@@ -1321,10 +1376,11 @@ DECODE_EDGE_CTX = 4103
 
 
 def decode_edge_lengths(torch, dtype, H, Hkv, D, capacity, longest):
-    """Lengths at the edges of B1's and B6's walk for a call whose longest
-    sequence has ``longest`` tokens: 1, one stage (a warp's chunk) +-1, one
-    split (the split the kernel takes for this call, ``split_for``) +-1,
-    and the longest last."""
+    """Lengths at the edges of the decode walk (B1, B4, B6) over a cache of
+    storage ``dtype`` for a call whose longest sequence has ``longest``
+    tokens: 1, one stage (a warp's chunk) +-1, one split (the split the
+    kernel takes for this call, ``split_for``) +-1, and the longest
+    last."""
     from repro_torch.kernels import decode_attention as da
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     p = da.plan(dtype, D, H // Hkv, Hkv, 8, capacity, sms)
@@ -1333,16 +1389,19 @@ def decode_edge_lengths(torch, dtype, H, Hkv, D, capacity, longest):
 
 
 def kernel_phase_decode_edges(torch, timer, dtype):
-    """B6 and B1 at the edges of their walk, at both models' geometry: the
-    lengths of ``decode_edge_lengths`` over an arena of 4099 positions (no
-    multiple of a stage) and over a pool whose block tables list pages out
-    of order, with a sentinel page inside the last row and lengths that end
-    inside a page; then two launches of each on the same inputs, which must
-    give the same bits (the in-kernel combine sums in split order and each
-    launch leaves its counters at zero).  Seeds of their own, so the other
-    checks' inputs stay as they were."""
+    """B6, B1 and B4 at the edges of their walk, at both models' geometry:
+    the lengths of ``decode_edge_lengths`` over an arena of 4099 positions
+    (no multiple of a stage) and over a pool whose block tables list pages
+    out of order, with a sentinel page inside the last row and lengths that
+    end inside a page, for B4 packed in int4 with NaN scales on every
+    masked row (its stage and split are the packed geometry's); then two
+    launches of each on the same inputs, which must give the same bits (the
+    in-kernel combine sums in split order and each launch leaves its
+    counters at zero).  Seeds of their own, so the other checks' inputs
+    stay as they were."""
+    from repro_torch.kernels import decode_attention as da
     seed = 4000 + 100 * (dtype == torch.bfloat16)
-    fns = kernel_functions()
+    seed_q4 = 4500 + 100 * (dtype == torch.bfloat16)
     for model, (H, Hkv, D) in GEOMS.items():
         S = DECODE_EDGE_S
         lengths, w, sp = decode_edge_lengths(torch, dtype, H, Hkv, D, S, S)
@@ -1360,15 +1419,46 @@ def kernel_phase_decode_edges(torch, timer, dtype):
         check_kernel(torch, timer, "paged_decode_attention", paged, {},
                      f"{model} edges pages out of order, stage={w} "
                      f"split={sp} lengths={lengths}", timed=False)
+        lengths, w, sp = decode_edge_lengths(torch, da.PACKED, H, Hkv, D,
+                                             W * PAGE, ctx)
+        seed_q4 += 1
+        q4 = q4_pages(torch, H, Hkv, D, lengths, dtype, seed_q4)
+        check_kernel(torch, timer, "paged_decode_attention_q4", q4, {},
+                     f"{model} edges int4 pages out of order, stage={w} "
+                     f"split={sp} lengths={lengths}", timed=False)
         for name, args in (("decode_attention", dense),
-                           ("paged_decode_attention", paged)):
-            a, b = fns[name](*args), fns[name](*args)
-            torch.cuda.synchronize()
-            same = bool(torch.equal(a, b))
-            label = f"{model} edges, " + shapes_label(args, {})
-            emit("repeat", name=name, inputs=label, identical=same, ok=same)
-            if not same:
-                FAILED.append(f"{name} [{label}]: two launches differ")
+                           ("paged_decode_attention", paged),
+                           ("paged_decode_attention_q4", q4)):
+            check_same_bits(torch, name, args, {},
+                            f"{model} edges, " + shapes_label(args, {}))
+
+
+def kernel_phase_ssd_edges(torch, timer, dtype):
+    """B7 at the edges of its routes at mamba2's geometry (H = 80, P = 64,
+    N = 128): chunks of Q = 1, 24, 200 and 256 positions (rows and keys
+    past Q in a 16-, 64-row tile, or none) over one chunk and over 33; 8
+    chunks whose cs spans 100 in every head (exp(cs_i - cs_j) underflows
+    far below the diagonal, and the tolerance's 4 Q S term is large where
+    the spans of ``ssd_inputs`` are small); and two launches on the same
+    inputs giving the same bits.  bf16 takes the tensor cores, f32 the
+    tile (``check_kernel`` requires the route ``route`` names).  Seeds of
+    their own, so the other checks' inputs stay as they were."""
+    seed = 5000 + 100 * (dtype == torch.bfloat16)
+    for nc in (1, 33):
+        for Q in (1, 24, 200, 256):
+            seed += 1
+            args = ssd_inputs(torch, nc, Q=Q, dtype=dtype, seed=seed,
+                              **SSD_GEOM)
+            check_kernel(torch, timer, "ssd_chunk", args, {},
+                         f"edges nc={nc} Q={Q}", timed=False)
+    seed += 1
+    args = ssd_inputs(torch, 8, Q=256, dtype=dtype, seed=seed, span=100.0,
+                      **SSD_GEOM)
+    check_kernel(torch, timer, "ssd_chunk", args, {},
+                 "edges nc=8 Q=256, cs spans 100 in every head", timed=False)
+    check_same_bits(torch, "ssd_chunk", args, {},
+                    "edges, " + shapes_label(args, {}),
+                    route=expected_route("ssd_chunk", args))
 
 
 def require_all_agree(phase: str) -> None:
@@ -1704,16 +1794,19 @@ def require_launches(phase, launches, expect):
 
 
 # the kernels with two routes behind one entry point (tensor cores or the
-# tile: kernels/flash_attention.py, gemv_cid.py and gemm_cim.py), and the
-# source each is built from
-ROUTED = ("flash_attention", "packed_prefill_attention", "gemv", "matmul")
+# tile: kernels/flash_attention.py, gemv_cid.py, gemm_cim.py and
+# ssd_scan.py), and the source each is built from
+ROUTED = ("flash_attention", "packed_prefill_attention", "gemv", "matmul",
+          "ssd_chunk")
 SOURCE_OF = {"flash_attention": "flash_attention",
              "packed_prefill_attention": "packed_prefill_attention",
-             "gemv": "gemv_int8", "matmul": "gemm_cim"}
+             "gemv": "gemv_int8", "matmul": "gemm_cim",
+             "ssd_chunk": "ssd_chunk"}
 
 
-# the sources none of whose kernels may spill (B6's and B1's)
-NO_SPILL = ("decode_attention", "paged_decode_attention")
+# the sources none of whose kernels may spill (B6's, B1's, B4's and B7's)
+NO_SPILL = ("decode_attention", "paged_decode_attention",
+            "paged_decode_attention_q4", "ssd_chunk")
 
 
 def route_counts():
@@ -1731,10 +1824,14 @@ def reset_routes():
 
 def require_routes(phase, routes, launches, want):
     """Every launch of a two-route kernel in ``phase`` took the route
-    ``want`` names: one route for all ("wgmma" or "tile"), or per kernel a
-    route or a count per route."""
+    ``want`` names: one route for all ("wgmma" or "tile"; a kernel whose
+    tensor-core route is named otherwise, B7's "mma", has no launch to
+    take it), or per kernel a route or a count per route (a kernel the
+    dict leaves out may not launch)."""
     for name in ROUTED:
-        w = want.get(name) if isinstance(want, dict) else want
+        if name not in routes:
+            continue
+        w = want.get(name, {}) if isinstance(want, dict) else want
         expect = ({w: launches[name]} if isinstance(w, str) else dict(w))
         got = {r: n for r, n in routes[name].items() if n}
         if got != {r: n for r, n in expect.items() if n}:
@@ -1757,6 +1854,11 @@ def expected_route(name, args):
         x, w = args
         return gm.route(x.dtype, x.shape[1], w.shape[1],
                         _build.aligned16(x, w))
+    if name == "ssd_chunk":
+        from repro_torch.kernels import ssd_scan as ss
+        x, _, _, B, C = args
+        return ss.route(x.dtype, x.shape[-1], B.shape[-1],
+                        _build.aligned16(x, B, C))
     pages = args[3].shape[1] if name == "packed_prefill_attention" else 8
     return fa.route(args[0].dtype, args[0].shape[-1], pages)
 
@@ -2049,6 +2151,8 @@ def serve_ssm_phase(torch, timer):
     expect = {name: 0 for name in kernel_functions()}
     expect["ssd_chunk"] = L * n_prompts * ROUNDS_SSM
     require_launches("serve_ssm", launches, expect)
+    # bf16 at P = 64: every launch on the tensor cores
+    require_routes("serve_ssm", probe.routes, launches, {"ssd_chunk": "mma"})
     args, kw = probe.inputs["ssd_chunk"][0]
     T0 = len(prompts[1])
     Q = min(cfg.ssm.chunk_size, T0)
@@ -2060,9 +2164,11 @@ def serve_ssm_phase(torch, timer):
                                  launches["ssd_chunk"],
                                  f"serve_ssm main path, {T0}-token prompt, "
                                  "layer 0")}
+    route_ms, route_by = ssd_route_cost(*args)
     emit("serve_ssm_layout", of=f"B7 at the {T0}-token prompt's layer 0",
          layout_ms=ssd_layout_ms(torch, timer, *args),
-         kernel_ms=main["ssd_chunk"]["kernel_ms"])
+         kernel_ms=main["ssd_chunk"]["kernel_ms"],
+         bound_ms_mma_route=route_ms, bound_by_mma_route=route_by)
     require_all_agree("serve_ssm")
     profile_phase(torch, eng, prompts[1:],
                   median([r["wall_s"] for r in rounds]), of="serve_ssm")
@@ -2088,11 +2194,16 @@ def ssd_layout_ms(torch, timer, x, dt, A, Bm, Cm):
     return timer(moves)
 
 
+# the names of B7's kernels, both routes
+SSD_KERNELS = ("ssd_mma", "ssd_y", "ssd_states")
+
+
 def prefill_share(torch, eng, prompts):
     """B7's share of a prefill's device time: the four prompts once more,
     one new token each (so no decode step runs), under ``torch.profiler``;
-    B7's two passes (``ssd_y``, ``ssd_states``) against every kernel's and
-    copy's device time.  Its launches are outside the counted run."""
+    B7's kernels (``ssd_mma`` on the tensor cores; the tile's ``ssd_y``
+    and ``ssd_states``) against every kernel's and copy's device time.
+    Its launches are outside the counted run."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.sampling import SamplingParams
 
@@ -2110,7 +2221,7 @@ def prefill_share(torch, eng, prompts):
             and device_us(e) > 0]
     busy = sum(device_us(e) for e in rows) / 1e3
     b7 = sum(device_us(e) for e in rows
-             if "ssd_y" in e.key or "ssd_states" in e.key) / 1e3
+             if any(k in e.key for k in SSD_KERNELS)) / 1e3
     top = sorted(rows, key=device_us, reverse=True)[:8]
     emit("profile", of="serve_ssm prefill", prompts=[len(p) for p in prompts],
          max_new_tokens=1,
@@ -2407,9 +2518,9 @@ def main() -> int:
     ptxas = {src: _build.ptxas_usage(src)
              for src in [SOURCE_OF[n] for n in ROUTED] + list(NO_SPILL)}
     emit("build", seconds=time.monotonic() - t0, compiled=built, ptxas=ptxas)
-    # the tensor-core kernels, and B1's and B6's walks, hold their
-    # accumulators in registers: a spill there is a design fault (the
-    # CUDA-core tiles' are reported only)
+    # the tensor-core kernels, the decode walk of B1, B4 and B6, and both
+    # of B7's routes hold their accumulators in registers: a spill there is
+    # a design fault (the other CUDA-core tiles' are reported only)
     spilled = [r["kernel"] for src, rows in ptxas.items() for r in rows
                if ("wgmma_kernel" in r["kernel"] or src in NO_SPILL)
                and (r["spill_stores"] or r["spill_loads"])]

@@ -1,6 +1,7 @@
-// Split-K flash-decode shared by B6 (decode_attention.cu, the dense arena)
-// and B1 (paged_decode_attention.cu, the page pool): one query token per
-// sequence against its cached K/V, one launch a call.
+// Split-K flash-decode shared by B6 (decode_attention.cu, the dense arena),
+// B1 (paged_decode_attention.cu, the page pool) and B4
+// (paged_decode_attention_q4.cu, the page pool in packed int4): one query
+// token per sequence against its cached K/V, one launch a call.
 //
 // What bounds it on the H100: bytes.  A decode step reads every valid K/V
 // row of the batch once and does 4 G flops per cached element (G = H / Hkv
@@ -26,7 +27,8 @@
 // memory (a chunk's K rows, then its V rows, in the cache's dtype; 64 KB of
 // rings a block).  Each lane copies 16-byte pieces of the chunk's rows with
 // cp.async, so one stage is in flight while another is computed (bf16: 2
-// stages of 8 KB a warp; f32: 4 of 4 KB); cp.async.wait_group and a warp
+// stages of 8 KB a warp; f32 and packed int4: 4 of 4 KB, int4 with each
+// token's two f32 scales beside its rows); cp.async.wait_group and a warp
 // barrier order the copies before the reads.  A token at or past the
 // length, or on an unallocated page, is never read from device memory: its
 // pieces are zero-filled and its bit in the chunk's mask is 0, so its p is
@@ -35,13 +37,17 @@
 // Arithmetic (the walks below).  bf16 runs on the tensor cores (MmaWalk:
 // the chunk's tokens are the rows of S^T = K Q^T and of O^T += V^T P^T, the
 // G heads the columns), f32 on the CUDA cores (CoreWalk: lanes share a row,
-// xor-shuffles finish each dot product); either keeps q and its share of
-// the accumulators in registers and reads each staged element from shared
-// memory once for all G heads.  The online-softmax state (m, l) is f32
-// (scale 1/sqrt(D)), updated once per chunk (per 16-token tile on the
-// tensor cores); p is rounded to the value dtype before P.V, as the
-// reference does.  At the end of a unit each warp leaves its state in
-// shared memory and the block merges the warps in warp order, once.
+// xor-shuffles finish each dot product), packed int4 on the CUDA cores in
+// f32 (Q4Walk: CoreWalk over 4-byte words of eight codes, unpacked in
+// registers, each token's scales applied outside its dot products);
+// each keeps q and its share of the accumulators in registers and reads
+// each staged element from shared memory once for all G heads.  The
+// online-softmax state (m, l) is f32 (scale 1/sqrt(D)), updated once per
+// chunk (per 16-token tile on the tensor cores); p is rounded to the value
+// dtype before P.V, as the reference does (int4: p stays f32, as the
+// reference's q4 kernel keeps it).  At the end of a unit each warp leaves
+// its state in shared memory and the block merges the warps in warp order,
+// once.
 //
 // Combine.  A unit whose sequence has one split writes its output.  Else
 // it leaves its (m, l) and unnormalised accumulator in f32 scratch and
@@ -57,6 +63,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma_sync.cuh"
 
 namespace decode_split {
 
@@ -85,10 +92,35 @@ struct Geom {
   static_assert(kTokPerLane >= 1 && kTokPerLane * kRowsPerPass == kWarpTok, "chunk");
 };
 
+// The same for packed int4 rows (D / 2 bytes: element 2i in the low nibble
+// of byte i) with one f32 scale per (token, kv head) a side: 4 stages of
+// 4 KB a warp, each holding a chunk's K rows, its V rows, then their K and
+// V scales.  A lane copies a piece of min(16, D / 2) bytes of a row (the
+// first lane of a row also its two scales), and a chunk is as many tokens
+// as fit, in whole passes of the warp's lanes, at most 64.
+template <int kD>
+struct Q4Geom {
+  static constexpr int kStages = 4;
+  static constexpr int kSlotBytes = kRingBytes / (kWarps * kStages);
+  static constexpr int kRowBytes = kD / 2;                       // a packed row
+  static constexpr int kPiece = kRowBytes < 16 ? kRowBytes : 16;  // bytes a copy
+  static constexpr int kRowLanes = kRowBytes / kPiece;           // lanes over one row
+  static constexpr int kRowsPerPass = 32 / kRowLanes;
+  static constexpr int kFit = kSlotBytes / (2 * kRowBytes + 8);   // tokens a stage holds
+  static constexpr int kWarpTok = (kFit < 64 ? kFit : 64) / kRowsPerPass * kRowsPerPass;
+  static constexpr int kTokPerLane = kWarpTok / kRowsPerPass;
+  static constexpr int kQuantum = kWarps * kWarpTok;             // split granularity
+  static constexpr int kHalf = kWarpTok * kRowBytes;             // V's offset in a stage
+  static constexpr int kScales = 2 * kHalf;                      // K scales, then V's
+  static_assert(kRowLanes >= 1 && 32 % kRowLanes == 0 && kRowBytes % kPiece == 0, "lanes");
+  static_assert(kTokPerLane >= 1 && kScales % 16 == 0, "chunk");
+  static_assert(kScales + 8 * kWarpTok <= kSlotBytes, "a stage fits its slot");
+};
+
 // what the wrapper passes (kernels/decode_attention.py plan and scratch)
 struct Args {
   const void* q;          // [B, H, D]
-  const void* k;          // rows of [*, Hkv, D]: the arena or the pool
+  const void* k;          // rows of [*, Hkv, D] (int4: D / 2 bytes): the arena or the pool
   const void* v;
   const int* lengths;     // [B]
   void* out;              // [B, H, D]
@@ -97,6 +129,8 @@ struct Args {
   unsigned* counters;     // [B, Hkv], zero between launches
   int B, H, Hkv, cap, target, n_split_max;
   float scale;
+  const float* k_scale = nullptr;   // packed int4 only: [*, Hkv] f32, rows as k's
+  const float* v_scale = nullptr;
 };
 
 // The split of a call whose longest sequence has len_max tokens: the
@@ -119,25 +153,6 @@ __host__ __device__ constexpr int combine_floats(int n_split) {
   return 2 * n_split * kG + kG + 3 + 4 * (kG * kD / 4 < kThreads ? kThreads : kG * kD / 4);
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy; with src_bytes 0 it reads nothing and writes
-// 16 zero bytes
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // one staged 16-byte piece: four f32
 __device__ __forceinline__ void load4(const unsigned char* p, float (&f)[4]) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -145,6 +160,21 @@ __device__ __forceinline__ void load4(const unsigned char* p, float (&f)[4]) {
   f[1] = v.y;
   f[2] = v.z;
   f[3] = v.w;
+}
+
+// A lane's copies of token r of a chunk from cache row `row` (a token index,
+// -1: not a valid key, zero-filled and never read) of kv head h: its piece
+// `part` of the K row and of the V row, placed as walk W places them;
+// float and bf16 caches.
+template <typename T, int kD, typename W>
+__device__ __forceinline__ void copy_rows(unsigned char* st, const Args& a, long long row,
+                                          int h, int r, int part) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  const size_t off =
+      row >= 0 ? (static_cast<size_t>(row) * a.Hkv + h) * kD + part * kVec : 0;
+  const int piece = W::at(r, part), n = row >= 0 ? 16 : 0;
+  cp_async16(st + piece, static_cast<const T*>(a.k) + off, n);
+  cp_async16(st + Geom<T, kD>::kHalf + piece, static_cast<const T*>(a.v) + off, n);
 }
 
 // The last unit of (b, h) to finish: the partials of its `used` splits,
@@ -244,7 +274,8 @@ __device__ __noinline__ void combine(const Args& a, int b, int h, int used, floa
 // ---------------------------------------------------------------------------
 // The arithmetic of one warp over its chunks.  A walk keeps q and the
 // warp's share of the online-softmax state and accumulators in registers;
-// `at(r, c)` places piece c of token r of a chunk in its stage, `chunk`
+// `Gm` is the geometry of its ring, `copy` issues a lane's copies of one
+// token of a chunk into its stage, `chunk`
 // folds a landed chunk in (bit t of `valid`: token t of the chunk is a
 // valid key), `finish` leaves the warp's (m, l) and accumulators per head
 // in shared memory for the block's merge.
@@ -260,6 +291,10 @@ struct CoreWalk {
   float qf[kG][kVec], acc[kG][kVec], m[kG], l[kG];
 
   __device__ __forceinline__ static int at(int r, int c) { return (r * kRowLanes + c) * 16; }
+  __device__ __forceinline__ static void copy(unsigned char* st, const Args& a, long long row,
+                                              int h, int r, int part) {
+    copy_rows<float, kD, CoreWalk>(st, a, row, h, r, part);
+  }
 
   // q: the first query head of the group
   __device__ __forceinline__ void start(const float* q, int lane) {
@@ -368,36 +403,6 @@ struct CoreWalk {
   }
 };
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-// d += a b: A 16 x 16 and B 16 x 8 in bf16, d 16 x 8 in f32
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// an 8 x 8 bf16 matrix held one pair a lane, transposed across the warp
-__device__ __forceinline__ uint32_t movmatrix_t(uint32_t x) {
-  uint32_t y;
-  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
-  return y;
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // bf16 on the tensor cores, with the tokens as the rows of each product:
 // S^T = K Q^T by mma.m16n8k16 (A: 16 staged K rows by ldmatrix; B: q's G
 // heads as 8 columns, the rest zero) and O^T += V^T P^T by mma.m16n8k16
@@ -427,6 +432,10 @@ struct MmaWalk {
     return c ^ ((r / (8 / kSw)) % kSw);
   }
   __device__ __forceinline__ static int at(int r, int c) { return r * kRowBytes + swz(r, c) * 16; }
+  __device__ __forceinline__ static void copy(unsigned char* st, const Args& a, long long row,
+                                              int h, int r, int part) {
+    copy_rows<__nv_bfloat16, kD, MmaWalk>(st, a, row, h, r, part);
+  }
 
   __device__ __forceinline__ void start(const __nv_bfloat16* q, int lane) {
     const int g = lane >> 2, c = 2 * (lane & 3);
@@ -517,18 +526,189 @@ struct MmaWalk {
   }
 };
 
+// Packed int4 rows on the CUDA cores in f32, q of type T (the reference's
+// q4 kernel keeps q, p and the dequantized V in f32).  In the products
+// kLanes = D / 8 lanes share a row, each one 4-byte word of eight codes,
+// unpacked in registers by the shift pair (element 8 w + e is nibble e of
+// word w; a nibble of 8 or more is its value - 16, the shift pair
+// sign-extends); xor-shuffles finish each dot product.  The token's scales
+// stay outside the inner sums: s = (sk (q . k_codes)) / sqrt(D) and acc +=
+// (p sv) v_codes, so a code is widened once and never multiplied by its
+// scale.
+template <typename T, int kD, int kG>
+struct Q4Walk {
+  using Gm = Q4Geom<kD>;
+  static constexpr int kLanes = kD / 8;          // lanes over one row in the products
+  static constexpr int kRows = 32 / kLanes;      // rows a pass
+  static constexpr int kPass = Gm::kWarpTok / kRows;
+  static_assert(kLanes >= 1 && kLanes <= 32 && kPass * kRows == Gm::kWarpTok, "passes");
+  float qf[kG][8], acc[kG][8], m[kG], l[kG];
+
+  __device__ __forceinline__ static void copy(unsigned char* st, const Args& a, long long row,
+                                              int h, int r, int part) {
+    const bool ok = row >= 0;
+    const size_t rh = ok ? static_cast<size_t>(row) * a.Hkv + h : 0;  // (token, kv head)
+    const size_t off = rh * Gm::kRowBytes + part * Gm::kPiece;
+    const int at = r * Gm::kRowBytes + part * Gm::kPiece;
+    cp_async_n<Gm::kPiece>(st + at, static_cast<const unsigned char*>(a.k) + off, ok);
+    cp_async_n<Gm::kPiece>(st + Gm::kHalf + at, static_cast<const unsigned char*>(a.v) + off,
+                           ok);
+    if (part == 0) {
+      cp_async_n<4>(st + Gm::kScales + 4 * r, a.k_scale + rh, ok);
+      cp_async_n<4>(st + Gm::kScales + 4 * (Gm::kWarpTok + r), a.v_scale + rh, ok);
+    }
+  }
+
+  // the eight codes of a staged word, in f32
+  __device__ __forceinline__ static void unpack(uint32_t w, float (&f)[8]) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      f[e] = static_cast<float>(static_cast<int>(w << (28 - 4 * e)) >> 28);
+  }
+
+  // q: the first query head of the group
+  __device__ __forceinline__ void start(const T* q, int lane) {
+    const T* qb = q + (lane % kLanes) * 8;
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      m[g] = NEG_INF;
+      l[g] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        qf[g][e] = to_f32(qb[g * kD + e]);
+        acc[g][e] = 0.f;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void chunk(const unsigned char* st, uint64_t valid, float scale,
+                                        int lane) {
+    const int grp = lane / kLanes, word = (lane % kLanes) * 4;
+    const float* ks = reinterpret_cast<const float*>(st + Gm::kScales);
+    const float* vs = ks + Gm::kWarpTok;
+    float s[kPass][kG];
+#pragma unroll
+    for (int i = 0; i < kPass; ++i) {
+      float kf[8];
+      unpack(*reinterpret_cast<const uint32_t*>(st + (grp + kRows * i) * Gm::kRowBytes + word),
+             kf);
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) d = fmaf(qf[g][e], kf[e], d);
+        s[i][g] = d;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPass; ++i)
+#pragma unroll
+      for (int g = 0; g < kG; ++g)
+#pragma unroll
+        for (int o = kLanes / 2; o > 0; o >>= 1)
+          s[i][g] += __shfl_xor_sync(0xffffffffu, s[i][g], o);
+#pragma unroll
+    for (int i = 0; i < kPass; ++i) {
+      const float sk = ks[grp + kRows * i];
+#pragma unroll
+      for (int g = 0; g < kG; ++g) s[i][g] = __fmul_rn(__fmul_rn(s[i][g], sk), scale);
+    }
+    // one online-softmax update per head for the chunk's tokens; s becomes p
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      float m_new = m[g];
+#pragma unroll
+      for (int i = 0; i < kPass; ++i)
+        if (valid >> (grp + kRows * i) & 1u) m_new = fmaxf(m_new, s[i][g]);
+      const float corr = expf(m[g] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < kPass; ++i) {
+        const float p = (valid >> (grp + kRows * i) & 1u) ? expf(s[i][g] - m_new) : 0.f;
+        sum += p;
+        s[i][g] = p;
+      }
+      l[g] = l[g] * corr + sum;
+      m[g] = m_new;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[g][e] *= corr;
+    }
+#pragma unroll
+    for (int i = 0; i < kPass; ++i) {
+      float vf[8];
+      unpack(*reinterpret_cast<const uint32_t*>(st + Gm::kHalf +
+                                                (grp + kRows * i) * Gm::kRowBytes + word),
+             vf);
+      const float sv = vs[grp + kRows * i];
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+        const float ps = __fmul_rn(s[i][g], sv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(ps, vf[e], acc[g][e]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void finish(float* xm, float* xl, float* xa, int warp, int lane) {
+    // the lane groups merge (xor over the group bits of lane)
+#pragma unroll
+    for (int o = kLanes; o < 32; o <<= 1) {
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[g], o);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[g], o);
+        const float mn = fmaxf(m[g], mo);
+        const float c = expf(m[g] - mn), co = expf(mo - mn);
+        l[g] = l[g] * c + lo * co;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float ao = __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+          acc[g][e] = acc[g][e] * c + ao * co;
+        }
+        m[g] = mn;
+      }
+    }
+    if (lane < kLanes) {
+#pragma unroll
+      for (int g = 0; g < kG; ++g)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) xa[(warp * kG + g) * kD + lane * 8 + e] = acc[g][e];
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+        xm[warp * kG + g] = m[g];
+        xl[warp * kG + g] = l[g];
+      }
+    }
+  }
+};
+
 template <typename T, int kD, int kG>
 using Walk =
     std::conditional_t<std::is_same<T, float>::value, CoreWalk<kD, kG>, MmaWalk<kD, kG>>;
 
+// The rows of a page pool (B1, B4): token t of sequence b lives at pool row
+// page * P + t % P of its block-table page bt[b, t / P]; a token is a valid
+// key iff that entry is allocated (0 <= page < n_pages).  Pages may be in
+// any order; the table row is a few L1-resident words.
+struct PoolRows {
+  const int* bt;  // [B, W]
+  int W, P, n_pages;
+  __device__ __forceinline__ long long operator()(int b, int t) const {
+    const int page = bt[static_cast<size_t>(b) * W + t / P];
+    return page >= 0 && page < n_pages ? static_cast<long long>(page) * P + t % P : -1;
+  }
+};
+
 // The kernel body.  `rows(b, t)` names the cache row (a token index into
 // the [rows, Hkv, D] array) that holds token t < len of sequence b, or -1
-// when t is not a valid key (an unallocated page).
-template <typename T, int kD, int kG, typename Rows>
+// when t is not a valid key (an unallocated page).  W is the walk: by
+// default the float cache's for q's dtype T, Q4Walk for packed int4 pages.
+template <typename T, int kD, int kG, typename Rows, typename W = Walk<T, kD, kG>>
 __device__ __forceinline__ void run(const Args& a, const Rows& rows) {
-  using Gm = Geom<T, kD>;
-  using W = Walk<T, kD, kG>;
-  constexpr int kVec = Gm::kVec, kRowLanes = Gm::kRowLanes;
+  using Gm = typename W::Gm;
+  constexpr int kRowLanes = Gm::kRowLanes;
   constexpr int kRowsPerPass = Gm::kRowsPerPass, kWarpTok = Gm::kWarpTok;
   constexpr int kTok = Gm::kTokPerLane, kStages = Gm::kStages, kSlot = Gm::kSlotBytes;
   extern __shared__ __align__(16) unsigned char ring[];
@@ -540,8 +720,6 @@ __device__ __forceinline__ void run(const Args& a, const Rows& rows) {
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int B = a.B, Hkv = a.Hkv;
-  const T* __restrict__ kc = static_cast<const T*>(a.k);
-  const T* __restrict__ vc = static_cast<const T*>(a.v);
 
   // the split, from the longest sequence; units per sequence and their prefix
   int mx = 0;
@@ -576,7 +754,6 @@ __device__ __forceinline__ void run(const Args& a, const Rows& rows) {
 
   const int total = s_pre[B] * Hkv;
   const int part = lane % kRowLanes, grp = lane / kRowLanes;
-  const size_t row_stride = static_cast<size_t>(Hkv) * kD;
   unsigned char* my_ring = ring + warp * kStages * kSlot;
 
   for (int u = blockIdx.x; u < total; u += gridDim.x) {
@@ -590,7 +767,6 @@ __device__ __forceinline__ void run(const Args& a, const Rows& rows) {
     const int t_begin = z * split, t_end = min(t_begin + split, s_len[b]);
     const int n_chunks = t_end > t_begin ? (t_end - t_begin + kWarpTok - 1) / kWarpTok : 0;
     const int mine = n_chunks > warp ? (n_chunks - warp + kWarps - 1) / kWarps : 0;
-    const size_t head = static_cast<size_t>(h) * kD + part * kVec;
 
     // the warp's k-th chunk into ring stage k % kStages; bit t of the
     // chunk's mask: its token t is a valid key
@@ -603,11 +779,7 @@ __device__ __forceinline__ void run(const Args& a, const Rows& rows) {
       for (int i = 0; i < kTok; ++i) {
         const int t = t0 + kRowsPerPass * i;
         const long long row = t < t_end ? rows(b, t) : -1;
-        const size_t at = row >= 0 ? static_cast<size_t>(row) * row_stride + head : 0;
-        const int n = row >= 0 ? 16 : 0;
-        const int piece = W::at(grp + kRowsPerPass * i, part);
-        cp_async16(st + piece, kc + at, n);
-        cp_async16(st + Gm::kHalf + piece, vc + at, n);
+        W::copy(st, a, row, h, grp + kRowsPerPass * i, part);
         const unsigned bal = __ballot_sync(0xffffffffu, row >= 0);
 #pragma unroll
         for (int g = 0; g < kRowsPerPass; ++g)
@@ -694,11 +866,11 @@ __device__ __forceinline__ void run(const Args& a, const Rows& rows) {
 }
 
 // Refuses what the kernels were not built for: the plan's quantum and
-// stages must be this build's, the batch at most kMaxBatch, the merge and
-// the combine must fit in the ring.
-template <typename T, int kD, int kG>
+// stages must be this build's (of the ring geometry Gm), the batch at most
+// kMaxBatch, the merge and the combine must fit in the ring.
+template <typename T, int kD, int kG, typename Gm = Geom<T, kD>>
 inline bool plan_fits(const Args& a, int quantum, int stages) {
-  return quantum == Geom<T, kD>::kQuantum && stages == Geom<T, kD>::kStages && a.B <= kMaxBatch &&
+  return quantum == Gm::kQuantum && stages == Gm::kStages && a.B <= kMaxBatch &&
          a.target > 0 && a.n_split_max > 0 &&
          merge_floats<kD, kG>() * 4 <= kRingBytes &&
          combine_floats<kD, kG>(a.n_split_max) * 4 <= kRingBytes;

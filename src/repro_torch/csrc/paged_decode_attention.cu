@@ -9,11 +9,11 @@
 // walk, persistent grid and in-kernel combine it runs).  Here token t of
 // sequence b lives at pool row page * P + t % P of its block-table page
 // bt[b, t / P]; a token is valid iff it lies before lengths[b] on a page
-// whose table entry is allocated (0 <= page < n_pages).  Each lane looks up
-// the page of each token it copies as it issues the copy (the table row is
-// a few L1-resident words); pages may be in any order.  Tokens on a
-// sentinel page or past a length are never loaded, so a non-finite value
-// there never reaches the output.
+// whose table entry is allocated (0 <= page < n_pages): decode_split's
+// PoolRows, shared with B4.  Each lane looks up the page of each token it
+// copies as it issues the copy (the table row is a few L1-resident words);
+// pages may be in any order.  Tokens on a sentinel page or past a length
+// are never loaded, so a non-finite value there never reaches the output.
 //
 // The grid is sized from the block table's capacity W * P and the SM
 // count, never from the lengths: a pool of 1024 pages gives every sequence
@@ -26,15 +26,7 @@
 namespace {
 
 using decode_split::kThreads;
-
-struct PoolRows {
-  const int* bt;  // [B, W]
-  int W, P, n_pages;
-  __device__ __forceinline__ long long operator()(int b, int t) const {
-    const int page = bt[static_cast<size_t>(b) * W + t / P];
-    return page >= 0 && page < n_pages ? static_cast<long long>(page) * P + t % P : -1;
-  }
-};
+using decode_split::PoolRows;
 
 template <typename T, int kD, int kG>
 __global__ void __launch_bounds__(kThreads, 2)

@@ -49,11 +49,12 @@ SIGNATURES = {
         [I, I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P],
     "gemv_int8": [I, I, I, P, P, P, P, P, P, I, I, I, I, I, P],
     "paged_decode_attention_q4":
-        [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P],
+        [I, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I,
+         I, F, P],
     "flash_attention": [I, I, P, P, P, P, I, I, I, I, I, I, I, F, P],
     "decode_attention":
         [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P],
-    "ssd_chunk": [I, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    "ssd_chunk": [I, I, P, P, P, P, P, P, P, I, I, I, I, I, P],
     "gemm_cim": [I, I, I, P, P, P, I, I, I, P],
 }
 

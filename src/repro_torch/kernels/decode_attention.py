@@ -9,18 +9,19 @@ They replace the Pallas ``paged_decode_attention``,
 what bounds each kernel and how its layout answers that; ``kernels/ref.py``
 holds the plain PyTorch versions the CPU path and the card's checks use.
 
-The float kernels (B1, B6) share one walk (``csrc/decode_split.cuh``): a
+All three (B1, B4, B6) run one walk (``csrc/decode_split.cuh``): a
 persistent grid whose blocks take (sequence, kv head, split) units in
-turn, each warp streaming its chunks of K/V through a ring of 16-byte
-asynchronous copies, and an in-kernel combine, so a call is one launch.
-``plan`` fixes what the host decides (the split's quantum, the ring's
-stages, the grid, the scratch) from the shapes, the capacity and the SM
-count, never from the lengths; ``split_for`` is the rule by which the
+turn, each warp streaming its chunks of K/V through a ring of asynchronous
+copies, and an in-kernel combine, so a call is one launch.  B4 runs it with
+the packed-int4 stage and walk (its rows of D / 2 bytes and their scales,
+unpacked and computed in f32 on the CUDA cores).  ``plan`` fixes what the
+host decides (the split's quantum, the ring's stages, the grid, the
+scratch) from the cache's storage dtype, the shapes, the capacity and the
+SM count, never from the lengths; ``split_for`` is the rule by which the
 kernel cuts the call's longest sequence on the card.  Their partials and
 per-(sequence, kv head) arrival counters live in scratch kept per device
 (``scratch``, grown only); the counters are left at zero by every launch,
-so the scratch serves one stream at a time.  The int4 kernel (B4) keeps
-its own two-pass split-K walk and per-call scratch.
+so the scratch serves one stream at a time.
 """
 
 from __future__ import annotations
@@ -34,20 +35,20 @@ import torch
 
 from repro_torch.kernels import _build
 
-# B4's tokens of one sequence per block of its first pass (a multiple of
-# its 32-token step)
-_SPLIT = 128
 # head dims the kernels are instantiated for: the reduced (16) and full
 # (128) configurations
 _HEAD_DIMS = (16, 128)
-# B1/B6: query heads per kv head the kernels are instantiated for
-# (llama2-7b, qwen3-8b: full and reduced)
+# query heads per kv head the kernels are instantiated for (llama2-7b,
+# qwen3-8b: full and reduced)
 _GROUPS = (1, 4)
-# B1/B6, as csrc/decode_split.cuh has them
+# as csrc/decode_split.cuh has them
 _WARPS = 4              # warps a block (kWarps)
 _RING_BYTES = 64 << 10  # the warps' rings (kRingBytes)
 _MAX_BATCH = 512        # sequences a call (kMaxBatch)
 _MAX_WARP_TOKENS = 64   # tokens a chunk at most (one bit each in a mask)
+# the storage dtype of packed-int4 pages: its plan is Q4Geom's
+PACKED = torch.uint8
+_PACKED_STAGES = 4      # Q4Geom::kStages
 # units the longest sequence is cut into, per SM, and persistent blocks
 # per SM (64 KB of ring each; two are resident, the third starts as one
 # finishes)
@@ -57,12 +58,14 @@ _BLOCKS_PER_SM = 3
 
 @dataclasses.dataclass(frozen=True)
 class DecodePlan:
-    """What the host fixes for one B1/B6 call.
+    """What the host fixes for one B1, B4 or B6 call.
 
     ``quantum``: tokens of one round of the block's warps, kWarps chunks
     of ``warp_tokens`` (bf16: 8 KB of K and V a chunk, at most 64 tokens;
-    f32: 4 KB); a split is a multiple of it.  ``stages``: chunks a warp
-    keeps in its ring (bf16 2, f32 4; 64 KB of rings a block either way).
+    f32: 4 KB; packed int4: the tokens whose K and V rows and scales fit
+    in 4 KB, in whole passes of the lanes that copy them); a split is a
+    multiple of it.  ``stages``: chunks a warp keeps in its ring (bf16 2,
+    f32 and int4 4; 64 KB of rings a block either way).
     ``target``: units the longest sequence is cut into, about
     (``split_for``).
     ``n_split_max``: the most splits any sequence of the call can have,
@@ -87,25 +90,41 @@ class DecodePlan:
         return math.prod(self.ml_shape)
 
 
+def ring_geometry(dtype: torch.dtype, D: int) -> Tuple[int, int]:
+    """(tokens a chunk, ring stages) of a cache of storage ``dtype`` at head
+    dim ``D``: ``Geom`` of csrc/decode_split.cuh for f32 and bf16,
+    ``Q4Geom`` for packed int4 (``PACKED``: rows of D / 2 bytes, copied in
+    pieces of min(16, D / 2) bytes, and two f32 scales a token)."""
+    if dtype == PACKED:
+        stages = _PACKED_STAGES
+        slot = _RING_BYTES // (_WARPS * stages)
+        row = D // 2
+        rows_per_pass = 32 // (row // min(16, row))
+        fit = min(_MAX_WARP_TOKENS, slot // (2 * row + 8))
+        return fit // rows_per_pass * rows_per_pass, stages
+    item = dtype.itemsize
+    stages = 2 if item == 2 else 4           # Geom::kStages
+    slot = _RING_BYTES // (_WARPS * stages)  # Geom::kSlotBytes
+    return min(_MAX_WARP_TOKENS, slot // (2 * D * item)), stages
+
+
 @functools.lru_cache(maxsize=256)
 def plan(dtype: torch.dtype, D: int, G: int, Hkv: int, B: int,
          capacity: int, sms: int) -> DecodePlan:
     """The plan of a call over ``B`` sequences of at most ``capacity``
     tokens (the arena's S, or the block table's W * P) on a card of
-    ``sms`` SMs.  The split ``split_for`` picks for a longest length L is
-    ``quantum`` x max(1, round(L Hkv / (target quantum))), so a sequence
-    has at most ceil(3 target / (2 Hkv)) splits (and at most
+    ``sms`` SMs, for a cache of storage ``dtype`` (q's for B1 and B6,
+    ``PACKED`` for B4).  The split ``split_for`` picks for a longest
+    length L is ``quantum`` x max(1, round(L Hkv / (target quantum))), so
+    a sequence has at most ceil(3 target / (2 Hkv)) splits (and at most
     ceil(capacity / quantum))."""
-    item = dtype.itemsize
-    stages = 2 if item == 2 else 4           # Geom::kStages
-    slot = _RING_BYTES // (_WARPS * stages)  # Geom::kSlotBytes
-    warp_tokens = min(_MAX_WARP_TOKENS, slot // (2 * D * item))
-    quantum = _WARPS * warp_tokens
+    tokens, stages = ring_geometry(dtype, D)
+    quantum = _WARPS * tokens
     target = max(1, round(_UNITS_PER_SM * sms))
     n_split_max = max(1, min(-(-3 * target // (2 * Hkv)),
                              -(-capacity // quantum)))
     grid = max(1, min(B * Hkv * n_split_max, _BLOCKS_PER_SM * sms))
-    return DecodePlan(warp_tokens, quantum, stages, target, n_split_max,
+    return DecodePlan(tokens, quantum, stages, target, n_split_max,
                       grid, (B, Hkv, n_split_max, G, D),
                       (B, Hkv, n_split_max, G, 2), B * Hkv)
 
@@ -149,20 +168,22 @@ def _sm_count(device: torch.device) -> int:
     return _sms[device]
 
 
-def _float_call(name, q, k, v, capacity, Hkv):
-    """Checks shared by B1 and B6 (after ``_check_query``), then their
-    plan, scratch and output."""
+def _walk_call(name, q, k, v, capacity, Hkv, kv_dtype):
+    """Checks shared by B1, B4 and B6 (after ``_check_query``): the caches
+    of storage ``kv_dtype`` (q's for B1 and B6, ``PACKED`` for B4); then
+    their plan, scratch and output."""
     B, H, D = q.shape
     G = H // Hkv
     if G not in _GROUPS or B > _MAX_BATCH:
         raise ValueError(f"{name}: {H} query heads over {Hkv} kv heads "
                          f"(groups of {_GROUPS}), batch {B} (at most "
                          f"{_MAX_BATCH})")
-    _build.check_tensors(name, [q, k, v], q.dtype, q.device)
+    _build.check_tensors(name, [q], q.dtype, q.device)
+    _build.check_tensors(name, [k, v], kv_dtype, q.device)
     if not _build.aligned16(q, k, v):
         raise ValueError(f"{name}: q and the K/V caches must be 16-byte "
                          "aligned")
-    p = plan(q.dtype, D, G, Hkv, B, capacity, _sm_count(q.device))
+    p = plan(kv_dtype, D, G, Hkv, B, capacity, _sm_count(q.device))
     return p, scratch(q.device, p), torch.empty_like(q)
 
 
@@ -183,8 +204,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
                          f"(head dim one of {_HEAD_DIMS})")
     _check_tables(name, block_tables, lengths, B, q.device)
     W = block_tables.shape[1]
-    p, (acc, ml, counters), out = _float_call(name, q, k_pages, v_pages,
-                                              W * P, Hkv)
+    p, (acc, ml, counters), out = _walk_call(name, q, k_pages, v_pages,
+                                             W * P, Hkv, q.dtype)
     fn = _build.function(name)
     err = fn(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
              v_pages.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
@@ -220,19 +241,17 @@ def paged_decode_attention_q4(q, k_pages, k_scales, v_pages, v_scales,
                          f"{tuple(v_scales.shape)} (head dim one of "
                          f"{_HEAD_DIMS})")
     _check_tables(name, block_tables, lengths, B, q.device)
-    _build.check_tensors(name, [q], q.dtype, q.device)
-    _build.check_tensors(name, [k_pages, v_pages], torch.uint8, q.device)
     _build.check_tensors(name, [k_scales, v_scales], torch.float32, q.device)
-    if k_pages.data_ptr() % 4 or v_pages.data_ptr() % 4:
-        raise ValueError(f"{name}: pages must be 4-byte aligned")
+    W = block_tables.shape[1]
+    p, (acc, ml, counters), out = _walk_call(name, q, k_pages, v_pages,
+                                             W * P, Hkv, PACKED)
     fn = _build.function(name)
-    out, part_acc, part_ml, n_split = _outputs(q, Hkv, block_tables.shape[1]
-                                               * P)
     err = fn(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
              k_scales.data_ptr(), v_pages.data_ptr(), v_scales.data_ptr(),
              block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             part_acc.data_ptr(), part_ml.data_ptr(), B, H, Hkv, D, n_pages,
-             P, block_tables.shape[1], _SPLIT, n_split, 1.0 / math.sqrt(D),
+             acc.data_ptr(), ml.data_ptr(), counters.data_ptr(), B, H, Hkv,
+             D, n_pages, P, W, p.quantum, p.stages, p.target, p.n_split_max,
+             p.grid, 1.0 / math.sqrt(D),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_cuda(name, err)
     paged_decode_attention_q4.launches += 1
@@ -258,8 +277,8 @@ def decode_attention(q, k_cache, v_cache, lengths):
         raise ValueError(f"{name}: lengths {tuple(lengths.shape)} for batch "
                          f"{B}")
     _build.check_tensors(name, [lengths], torch.int32, q.device)
-    p, (acc, ml, counters), out = _float_call(name, q, k_cache, v_cache, S,
-                                              Hkv)
+    p, (acc, ml, counters), out = _walk_call(name, q, k_cache, v_cache, S,
+                                             Hkv, q.dtype)
     fn = _build.function(name)
     err = fn(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
              v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
@@ -285,17 +304,6 @@ def _check_tables(name, block_tables, lengths, B, device):
         raise ValueError(f"{name}: block_tables {tuple(block_tables.shape)} "
                          f"/ lengths {tuple(lengths.shape)} for batch {B}")
     _build.check_tensors(name, [block_tables, lengths], torch.int32, device)
-
-
-def _outputs(q, Hkv, span):
-    """B4's output and split-K scratch: partial accumulators
-    [B,Hkv,n_split,G,D] and (m, l) pairs, f32."""
-    B, H, D = q.shape
-    n_split = -(-span // _SPLIT)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((B, Hkv, n_split, H // Hkv, D), **f32)
-    part_ml = torch.empty((B, Hkv, n_split, H // Hkv, 2), **f32)
-    return torch.empty_like(q), part_acc, part_ml, n_split
 
 
 # launches of each kernel (the wrapper counts each, and nothing else does)

@@ -1,10 +1,12 @@
-"""The host side of B1 and B6 (``paged_decode_attention``,
-``decode_attention``) on the CPU: the plan their wrapper hands the kernel
-(split quantum, ring stages, persistent grid, scratch shapes) at the serve
-phases' shapes and at edges, the split rule the kernel applies to a call's
-longest sequence, the bound that sizes the scratch, the scratch kept per
-device, and that the constants mirror ``csrc/decode_split.cuh``.  The
-kernels themselves run only on the card (``chip_smoke.py``)."""
+"""The host side of B1, B4 and B6 (``paged_decode_attention``,
+``paged_decode_attention_q4``, ``decode_attention``) on the CPU: the plan
+their wrapper hands the kernel (split quantum, ring stages, persistent
+grid, scratch shapes) for float caches and for packed int4 pages
+(``da.PACKED``) at the serve phases' shapes and at edges, the split rule
+the kernel applies to a call's longest sequence, the bound that sizes the
+scratch, the scratch kept per device, and that the constants mirror
+``csrc/decode_split.cuh``.  The kernels themselves run only on the card
+(``chip_smoke.py``)."""
 
 import re
 
@@ -20,15 +22,19 @@ SMS = 132
 
 @pytest.mark.parametrize("dtype,D,warp_tokens,quantum,stages", [
     (BF16, 128, 16, 64, 2), (F32, 128, 4, 16, 4),
-    (BF16, 16, 64, 256, 2), (F32, 16, 32, 128, 4)])
+    (BF16, 16, 64, 256, 2), (F32, 16, 32, 128, 4),
+    (da.PACKED, 128, 24, 96, 4), (da.PACKED, 16, 64, 256, 4)])
 def test_plan_stages_and_quantum(dtype, D, warp_tokens, quantum, stages):
     """bf16 stages 8 KB a warp (16-token tiles for the tensor cores), f32
-    4 KB; at most 64 tokens a chunk; four warps a block."""
+    4 KB; packed int4 4 KB of K and V rows of D / 2 bytes and two f32
+    scales a token, in whole passes of the lanes that copy them (8 rows a
+    pass at D = 128, 32 at 16); at most 64 tokens a chunk; four warps a
+    block."""
     p = da.plan(dtype, D, 4, 8, 4, 8192, SMS)
     assert (p.warp_tokens, p.quantum, p.stages) == (warp_tokens, quantum,
                                                     stages)
-    assert p.stages * p.warp_tokens * 2 * D * dtype.itemsize * 4 \
-        <= da._RING_BYTES
+    row = D // 2 + 4 if dtype == da.PACKED else D * dtype.itemsize
+    assert p.stages * p.warp_tokens * 2 * row * 4 <= da._RING_BYTES
 
 
 @pytest.mark.parametrize("capacity", [8192, 16384])
@@ -55,6 +61,22 @@ def test_split_at_the_serve_phases_longest_lengths(len_max, split):
     assert da.split_for(p, len_max, 8) == split
 
 
+@pytest.mark.parametrize("len_max,split", [
+    (2028, 96), (1964, 96), (1901, 96), (1000, 96), (4103, 288), (1, 96),
+    (0, 96)])
+def test_packed_split_at_serve_quantized_longest_lengths(len_max, split):
+    """B4's split at qwen3-8b's geometry over ``serve_quantized``'s pool
+    (1024 pages of 16): the multiple of its 96-token quantum nearest to the
+    one that cuts the longest sequence into 132 units over its 8 kv heads,
+    at least 96 — so the longest decoding prompt (1900 + 64 new tokens)
+    spreads over every SM."""
+    p = da.plan(da.PACKED, 128, 4, 8, 4, 16384, SMS)
+    assert da.split_for(p, len_max, 8) == split
+    if 1901 <= len_max <= 2028:                # serve_quantized's longest
+        n = -(-len_max // split) * 8
+        assert SMS <= n <= p.grid
+
+
 @pytest.mark.parametrize("len_max,units", [(8001, 128), (1964, 128)])
 def test_longest_sequence_spreads_over_every_sm(len_max, units):
     """The longest sequence of ``serve_dense`` (~8000 tokens) and of
@@ -68,7 +90,8 @@ def test_longest_sequence_spreads_over_every_sm(len_max, units):
 @pytest.mark.parametrize("dtype,D,G,Hkv,capacity", [
     (BF16, 128, 4, 8, 8192), (BF16, 128, 1, 32, 4160),
     (F32, 128, 4, 8, 4160), (F32, 16, 4, 1, 2176), (BF16, 16, 1, 4, 96),
-    (BF16, 16, 4, 1, 16384)])
+    (BF16, 16, 4, 1, 16384), (da.PACKED, 128, 4, 8, 16384),
+    (da.PACKED, 16, 4, 1, 2176), (da.PACKED, 128, 1, 32, 4160)])
 def test_no_sequence_has_more_splits_than_the_scratch(dtype, D, G, Hkv,
                                                       capacity):
     """For every longest length up to the capacity the kernel's split cuts
@@ -127,6 +150,13 @@ def test_constants_mirror_the_c_header():
     assert "kStages = kSize == 2 ? 2 : 4;" in text
     assert f"< {da._MAX_WARP_TOKENS} ?" in text
     assert "(static_cast<long long>(len_max) * Hkv + unit / 2) / unit" in text
+    # packed int4 pages: Q4Geom's stages, pieces and tokens a stage
+    q4 = text[text.index("struct Q4Geom {"):]
+    assert int(re.search(r"kStages = (\d+);", q4)[1]) == da._PACKED_STAGES
+    assert "kPiece = kRowBytes < 16 ? kRowBytes : 16;" in q4
+    assert "kFit = kSlotBytes / (2 * kRowBytes + 8);" in q4
+    assert (f"kWarpTok = (kFit < {da._MAX_WARP_TOKENS} ? kFit : "
+            f"{da._MAX_WARP_TOKENS}) / kRowsPerPass * kRowsPerPass;") in q4
 
 
 def test_every_group_size_is_instantiated():
