@@ -121,7 +121,35 @@ Phases, one JSON line each:
    says where one more round's time goes under ``torch.profiler`` (device
    busy time, top kernels) and estimates the device's idle share as one
    minus that busy time over the unprofiled rounds' median wall time.
-6. ``serve_quantized`` — the same model and prompts with int8 weights and
+6. ``serve_prefix_spec`` — the ``serve`` phase's weights and pool with the
+   prefix cache and n-gram speculative decoding (k = 4): prompts opening
+   with one 1024-token prefix (64 pages) and going on with tails of 876,
+   333, 37 and 0 tokens, 64 new tokens each.  The cold round publishes
+   the prefix; the warm round (new tails) must attach 1024 tokens to each
+   request but the tail-0 one, which attaches 1008 (the match is capped
+   at len - 1 and takes whole pages).  In both rounds: every request
+   finishes, no logit is NaN, no plain version is called, B2 launches 36
+   x the prefill steps and B1 36 x the decode steps (one in each tick
+   that decoded without a verify window, as the tick log says; verify
+   windows run ``forward_chunk``, plain attention as in the reference),
+   one verify step in each tick that drafted, drafts > 0 and accepted <=
+   drafted, and the streams equal the same prompts' speculation-off,
+   cache-off streams up to the first position where that run's top-2
+   margin is at most ``SPEC_TIE_MARGIN`` (0.1, derived in the phase's
+   docstring).  B1 and B2 are re-checked at the warm round's first
+   launches.  The served traffic copies no page (``check_cow``): the
+   phase then forces the write a prompt equal to the prefix would make at
+   its last token and requires the page copied, every leaf equal.  Then
+   the warm traffic on a second engine with int8 weights and int4 KV
+   (after an uncounted cold round): B3 7 x 36 x (decode + verify steps),
+   every verify call at M = N x (k+1) rows, B4 36 x the decode steps, B2
+   36 x the prefill steps, B1 never; B3 re-checked at the first verify
+   step's seven calls, B4 and B2 at their first launches, and the forced
+   COW copy must move the scale pages too.  Reports TTFT cold and warm
+   (and cache-off), TPOT, windows, acceptance, tokens per window and per
+   verify step, COW copies, peak memory and a ``profile`` line (``"of":
+   "serve_prefix_spec"``) of a third, warm round.
+7. ``serve_quantized`` — the same model and prompts with int8 weights and
    packed-int4 KV pages (HALO's decode datapath), two rounds: the int8 GEMV
    must launch 7 x n_layers times per decode step (wq, wk, wv, wo and the
    three FFN matmuls), the int4 decode kernel n_layers times per decode
@@ -131,7 +159,7 @@ Phases, one JSON line each:
    GEMV's seven calls also timed with the L2 flushed by a read (clean)
    rather than a write (the ``gemv_clean_l2`` line), and a ``profile``
    line (``"of": "serve_quantized"``) follows as for ``serve``.
-7. ``serve_dense`` — qwen3-8b as in ``serve`` on the DENSE arena
+8. ``serve_dense`` — qwen3-8b as in ``serve`` on the DENSE arena
    (``paged=False``, max_len 8192, max_batch 4) with whole-prompt prefill
    (``prefill_chunk=0``): prompts of 8000, 4096, 2304 and 1000 tokens, 64
    new tokens each, two rounds.  Each round, the flash-attention kernel
@@ -146,7 +174,7 @@ Phases, one JSON line each:
    decoding) and B2 (the first packed launch) are re-checked at those
    inputs as in ``serve``.  TTFT per prompt length, TPOT, decode tokens/s,
    peak memory and a ``profile`` line (``"of": "serve_dense"``).
-8. ``serve_ssm`` — mamba2-2.7b at full width and all 64 layers in bf16
+9. ``serve_ssm`` — mamba2-2.7b at full width and all 64 layers in bf16
    (random seeded weights) on the dense arena (max_len 8448, max_batch 4)
    with whole-prompt prefill: after the 24-token warm-up, prompts of 8192,
    4096, 2048 and 200 tokens, 64 new tokens each, two rounds.  Each round
@@ -157,21 +185,26 @@ Phases, one JSON line each:
    tensor-core route's own bound (``ssd_route_cost``).  TTFT per prompt length, TPOT, decode tokens/s, weight and state
    bytes, peak memory, a ``profile`` line for a round and one for a
    prefill-only pass with B7's share of its device time.
-9. ``preempt`` — the same model cut to 4 layers, with a pool small enough
+10. ``preempt`` — the same model cut to 4 layers, with a pool small enough
    to force preemptions; every request must finish.
-10. ``parity``  — reduced llama2-7b and qwen3-8b in f32, one engine on
+11. ``parity``  — reduced llama2-7b and qwen3-8b in f32, one engine on
    ``cuda`` (kernels) and one on ``cpu`` (plain versions), same weights,
    f32 KV (with and without a forced preemption) and int8 KV on the paged
-   pool, and the dense arena with whole-prompt prefill (a 2100-token
-   prompt among short ones) and with packed chunks; reduced mamba2-2.7b on
-   the dense arena with whole-prompt prefill: equal tick logs, and
-   equal greedy streams up to the first position where the CPU run's own
-   top-2 logit margin, recorded as it served, is at most 1e-3.
+   pool; with the prefix cache (f32 and int8 KV), speculation (k = 4),
+   both, and ``packed_prefill=False`` on the paged pool, over prompts
+   sharing a 16-token head; and the dense arena with whole-prompt prefill
+   (a 2100-token prompt among short ones) and with packed chunks; reduced
+   mamba2-2.7b on the dense arena with whole-prompt prefill: equal tick
+   logs (drafted and accepted tokens included) and prefix and spec stats,
+   and equal greedy streams up to the first position where the CPU run's
+   own top-2 logit margin, recorded as it served (a verify window's per
+   position), is at most 1e-3.
 
 In every serve phase each kernel's plain version must be called 0 times:
 on the card nothing falls back to it.  B5, B2, B3, B8 and B7 count their
-launches by route: ``serve``, ``serve_quantized`` (B3 among them), both
-``serve_dense`` rounds and ``serve_ssm`` (bf16) must launch only their
+launches by route: ``serve``, ``serve_prefix_spec`` and its int8 round,
+``serve_quantized`` (B3 among them), both ``serve_dense`` rounds and
+``serve_ssm`` (bf16) must launch only their
 tensor-core route, ``parity`` (f32) only the CUDA-core tile, and ``bench``
 as said above.
 
@@ -216,6 +249,13 @@ ROUNDS_QUANTIZED = 2      # serve_quantized rounds of them
 ROUNDS_DENSE = 2          # serve_dense whole-prompt rounds
 DENSE_MAX_LEN = 8192      # serve_dense arena positions per slot
 ROUNDS_SSM = 2            # serve_ssm rounds
+SPEC_K = 4                # serve_prefix_spec: draft tokens a verify window
+PREFIX_LEN = 1024         # serve_prefix_spec: the shared prefix (64 pages)
+PREFIX_TAILS = (876, 333, 37, 0)
+# serve_prefix_spec: the speculation-off run's top-2 logit margin up to
+# which a bf16 stream with the cache and speculation on may part from it
+# (see serve_prefix_spec_phase)
+SPEC_TIE_MARGIN = 0.1
 SSM_MAX_LEN = 8448        # serve_ssm arena positions per slot (8192 + 256)
 DEV = "cuda"              # the card; the input builders allocate here
 FAILED = []               # kernel checks that disagreed (raised per phase)
@@ -1579,9 +1619,17 @@ class MainPathProbe:
     of the first decode step with the most requests decoding the first
     layer's dense decode launch.  With ``keep="each shape"`` it keeps
     instead a copy of each kernel's first call at every distinct set of
-    input shapes, dtypes and keywords (the benchmark runner's calls).
-    Without an ``engine`` the model entry points are left as they are.
-    The kernels' own ``launches`` counters are untouched by it."""
+    input shapes, dtypes and keywords (the benchmark runner's calls); a
+    dict ``keep`` names the mode per kernel ("first" copies, "last"
+    references, "busiest") and leaves the others at their default.
+    Speculative verify windows (``forward_chunk`` with every position's
+    logits) count as "verify" steps; the GEMV calls of a verify step's
+    first layer are kept apart in "gemv_verify", copied, keyed by their
+    rows (the first step at each row count), ``first_verify_rows`` is the
+    first verify step's, and ``verify_rows`` collects the (GEMV rows,
+    window rows x window width) of every verify GEMV call.  Without an
+    ``engine`` the model entry points are left as they are.  The kernels'
+    own ``launches`` counters are untouched by it."""
 
     GEMV_PER_LAYER = 7
 
@@ -1589,7 +1637,10 @@ class MainPathProbe:
         self.torch, self.n_layers, self.engine = torch, n_layers, engine
         self.keep = keep
         self.nan = torch.zeros((), dtype=torch.bool, device=DEV)
-        self.steps = {"prefill": 0, "decode": 0}
+        self.steps = {"prefill": 0, "decode": 0, "verify": 0}
+        self.verify_rows = set()  # (GEMV x rows, N x C) in verify steps
+        self.first_verify_rows = None
+        self._window = None       # N x C while a verify step runs
         self.calls = {name: 0 for name in kernel_functions()}
         self.plain_calls = {}  # plain version -> calls
         self.inputs = {}       # name -> {call in the layer | shapes: (args, kw)}
@@ -1605,6 +1656,19 @@ class MainPathProbe:
 
         def model(fn, step):
             def wrapped(*a, **k):
+                if step == "verify":
+                    if not k.get("return_all_logits"):
+                        raise AssertionError("a padded chunk prefill ran; "
+                                             "only verify windows expected")
+                    tokens = a[2]
+                    self._window = tokens.shape[0] * tokens.shape[1]
+                    try:
+                        out = fn(*a, **k)
+                    finally:
+                        self._window = None
+                    self.nan |= self.torch.isnan(out[0]).any()
+                    self.steps[step] += 1
+                    return out
                 if step == "decode":
                     rows = sum(r is not None
                                and r.state == RequestState.DECODING
@@ -1620,10 +1684,29 @@ class MainPathProbe:
         def kernel(fn, name, keep, per_layer=1):
             # keep: "first" launch (copied), "last" (references), the
             # "busiest" decode step's (copied), or the first at "each
-            # shape" (copied; overrides the others)
-            keep = self.keep or keep
+            # shape" (copied; overrides the others); a dict names it per
+            # kernel
+            if isinstance(self.keep, dict):
+                keep = self.keep.get(name, keep)
+            else:
+                keep = self.keep or keep
 
             def wrapped(*a, **k):
+                if self._window is not None and name == "gemv":
+                    # the verify windows' GEMV calls: their rows, and the
+                    # first layer of the first step at each row count
+                    # kept apart, copied
+                    m = a[0].shape[0]
+                    self.verify_rows.add((m, self._window))
+                    if self.first_verify_rows is None:
+                        self.first_verify_rows = m
+                    j = self.calls.setdefault(("gemv_verify", m), 0)
+                    self.calls[("gemv_verify", m)] += 1
+                    if j < per_layer:
+                        self.inputs.setdefault("gemv_verify", {}).setdefault(
+                            m, {})[j] = (tuple(x if x is None else x.clone()
+                                               for x in a), dict(k))
+                    return fn(*a, **k)
                 i = self.calls[name]
                 self.calls[name] += 1
                 kept = self.inputs.setdefault(name, {})
@@ -1653,8 +1736,9 @@ class MainPathProbe:
         if self.engine is not None:
             self._saved += [(eng, attr, getattr(eng, attr)) for attr in
                             ("forward", "forward_chunk_packed",
-                             "prefill_into_arena")]
+                             "prefill_into_arena", "forward_chunk")]
             eng.forward = model(eng.forward, "decode")
+            eng.forward_chunk = model(eng.forward_chunk, "verify")
             eng.forward_chunk_packed = model(eng.forward_chunk_packed,
                                              "prefill")
             eng.prefill_into_arena = model(eng.prefill_into_arena, "prefill")
@@ -1871,6 +1955,10 @@ ON_PATH = {"serve": ("paged_decode_attention", "packed_prefill_attention"),
            "serve_dense_packed": ("packed_prefill_attention",
                                   "decode_attention"),
            "serve_ssm": ("ssd_chunk",),
+           "serve_prefix_spec": ("paged_decode_attention",
+                                 "packed_prefill_attention"),
+           "serve_prefix_spec_quantized": ("gemv", "paged_decode_attention_q4",
+                                           "packed_prefill_attention"),
            # the benchmark runner's kernel_micro suite
            "bench": ("gemv", "matmul", "decode_attention", "flash_attention",
                      "packed_prefill_attention")}
@@ -1935,7 +2023,9 @@ def recheck(torch, timer, name, args, kw, launches, label,
     return row
 
 
-def serve_phase(torch, timer):
+def serve_phase(torch, timer, shared):
+    """qwen3-8b in bf16 on the paged pool; its weights are left in
+    ``shared`` for ``serve_prefix_spec``."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params
 
@@ -1966,7 +2056,312 @@ def serve_phase(torch, timer):
     require_all_agree("serve")
     profile_phase(torch, eng, prompts[1:],
                   median([r["wall_s"] for r in rounds]))
-    del eng, params, probe
+    shared.update(cfg=cfg, params=params)
+    del eng, probe
+    free_device_memory(torch)
+    return main
+
+
+def prefix_spec_prompts(cfg):
+    """A 24-token warm-up prompt, then three sets of four prompts that open
+    with one 1024-token prefix and go on with tails of 876, 333, 37 and 0
+    tokens (new tails in each set): the cold round's, the warm round's and
+    the profiled round's."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    warm = rng.integers(0, cfg.vocab_size, 24, dtype=np.int32)
+    head = rng.integers(0, cfg.vocab_size, PREFIX_LEN, dtype=np.int32)
+    return warm, [[np.concatenate([head, rng.integers(
+        0, cfg.vocab_size, n, dtype=np.int32)]) for n in PREFIX_TAILS]
+        for _ in range(3)]
+
+
+def prefix_spec_round(torch, eng, prompts, n_layers, keep):
+    """One counted round of the prefix-cache and speculation traffic: every
+    kernel's count and route count set to 0, the prompts served with 64 new
+    tokens under the probe, then the checks every such round passes —
+    every request finished, no NaN logit, no plain version called, one
+    verify step in each tick that drafted, one decode step in each tick
+    that decoded without a window (and at most one in any tick), drafts
+    verified and no more accepted than drafted."""
+    from repro_torch.serving.sampling import SamplingParams
+
+    fns = kernel_functions()
+    for fn in fns.values():
+        fn.launches = 0
+    reset_routes()
+    n0, w0 = eng.n_ticks, eng.spec_windows
+    with MainPathProbe(torch, n_layers, eng, keep=keep) as probe:
+        t0 = time.monotonic()
+        reqs = eng.generate(prompts, SamplingParams(max_new_tokens=64))
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in fns.items()}
+    probe.routes = route_counts()
+    log = list(eng.tick_log)[-(eng.n_ticks - n0):]
+    windows = eng.spec_windows - w0
+    drafted = sum(t.spec_drafted for t in log)
+    accepted = sum(t.spec_accepted for t in log)
+    plain_ticks = sum(bool(t.decode_reqs) and not t.spec_drafted for t in log)
+    decode_ticks = sum(bool(t.decode_reqs) for t in log)
+    steps = probe.steps
+    if any(r.state.value != "done" or len(r.generated) != 64 for r in reqs):
+        raise AssertionError("not every request finished its 64 tokens")
+    if bool(probe.nan):
+        raise AssertionError("a logit was NaN")
+    if probe.plain_calls:
+        raise AssertionError(f"plain versions called on the card: "
+                             f"{probe.plain_calls}")
+    if steps["verify"] != sum(t.spec_drafted > 0 for t in log):
+        raise AssertionError(f"verify steps {steps['verify']} != ticks that "
+                             "drafted")
+    if not plain_ticks <= steps["decode"] <= decode_ticks:
+        raise AssertionError(f"decode steps {steps['decode']} outside "
+                             f"[{plain_ticks}, {decode_ticks}]")
+    if not 0 < drafted or not accepted <= drafted:
+        raise AssertionError(f"drafted {drafted}, accepted {accepted}")
+    return dict(reqs=reqs, probe=probe, launches=launches, log=log,
+                row=dict(wall_s=wall_s, ticks=len(log),
+                         prefill_steps=steps["prefill"],
+                         decode_steps=steps["decode"],
+                         verify_steps=steps["verify"],
+                         ticks_decoding=decode_ticks,
+                         ticks_decoding_without_window=plain_ticks,
+                         windows=windows, drafted=drafted, accepted=accepted,
+                         acceptance_rate=accepted / drafted,
+                         # each window emits its accepted drafts and one
+                         # correction or bonus token
+                         tokens_per_window=(accepted + windows) / windows,
+                         tokens_per_verify_step=((accepted + windows)
+                                                 / steps["verify"]),
+                         cached_tokens=[r.cached_tokens for r in reqs],
+                         ttft_ms=[r.ttft * 1e3 for r in reqs],
+                         tpot_ms=[r.tpot * 1e3 for r in reqs],
+                         ttft_ms_median=median([r.ttft * 1e3 for r in reqs]),
+                         tpot_ms_median=median([r.tpot * 1e3 for r in reqs]),
+                         launches=launches, routes=probe.routes))
+
+
+def compare_to_baseline(label, streams, base, margins):
+    """Streams with the cache and speculation on against the same prompts'
+    speculation-off streams: equal up to the first position where the
+    speculation-off run's own top-2 margin is at most SPEC_TIE_MARGIN."""
+    flips, compared = [], 0
+    for i, (a, b) in enumerate(zip(streams, base)):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), len(b))
+        compared += j
+        if j == len(b):
+            continue
+        flips.append(dict(request=i, position=j, margin=margins[i][j]))
+        if margins[i][j] > SPEC_TIE_MARGIN:
+            raise AssertionError(
+                f"{label}: request {i} differs at token {j} where the "
+                f"speculation-off margin is {margins[i][j]}")
+    if compared < len(streams):
+        raise AssertionError(f"{label}: only {compared} positions compared")
+    return dict(positions_compared=compared, near_tie_flips=flips,
+                streams_equal=streams == base)
+
+
+def check_cow(torch, eng, head):
+    """The write a prompt equal to the cached prefix would make at its last
+    token, forced: its slot attaches the prefix's pages (no len - 1 cap)
+    and the engine makes the last one writable.  That page is copied
+    first: at the copy every leaf of every run (K, V and, quantized, their
+    scale pages) holds what the source holds, the source stays the
+    cache's, and the pool's invariants hold once the slot is released.
+    (The served traffic copies no page: a match is whole pages, so a write
+    never lands in an attached page of a full-attention model.)"""
+    pool = eng.pool
+    slot = eng.slot_req.index(None)
+    matched, pages = eng.prefix.match(head)
+    if matched != len(head):
+        raise AssertionError(f"the prefix matched {matched} tokens")
+    pool.attach(slot, pages, matched)
+    n0 = eng.cow_copies
+    if not eng._ensure_writable(slot, matched - 1, matched):
+        raise AssertionError("no page for the copy")
+    row = (matched - 1) // PAGE
+    equal = True
+    for r, p in enumerate(pool.pools):
+        old, new = pages[r][row], int(p.table[slot, row])
+        if new == old or p.external[old] < 1:
+            raise AssertionError(f"page {old} was not copied, or is no "
+                                 "longer the cache's")
+        for leaf in eng.cache[r].values():
+            equal &= bool(torch.equal(leaf[:, new], leaf[:, old]))
+    copies = eng.cow_copies - n0
+    pool.release(slot)
+    for p in pool.pools:
+        p.check_invariants()
+    if copies != len(pool.pools) or not equal:
+        raise AssertionError(f"COW: {copies} copies, pages equal {equal}")
+    return dict(copies=copies, page_equal=equal,
+                leaves=sorted(eng.cache[0]))
+
+
+def serve_prefix_spec_phase(torch, timer, shared):
+    """The ``serve`` phase's qwen3-8b weights and pool with the prefix
+    cache and n-gram speculative decoding (k = 4): a cold round that
+    publishes the shared 1024-token prefix and a warm round that attaches
+    it, then the warm traffic again on a second engine with int8 weights
+    and int4 KV.  Streams are held against the same prompts served with
+    both off (B1 decode, one token a tick), up to that run's first top-2
+    margin of at most SPEC_TIE_MARGIN = 0.1: a verify window scores its
+    tokens with plain attention where the one-token decode uses B1, so in
+    bf16 the two round apart.  One bf16 rounding of the final normed
+    hidden state (rms 1, d = 4096, LM head entries ~0.02) moves a logit by
+    about 2^-9 * 0.02 * 64 = 0.0025 with random signs and by up to 2^-8 *
+    sum |h_i w_i| = 0.2 with aligned ones; 0.1 is forty of the former, and
+    half the latter, for the roundings the two paths make apart in 36
+    layers."""
+    from repro_torch.serving.sampling import SamplingParams
+    from repro_torch.serving.speculative import SpecConfig
+
+    cfg, params = shared.pop("cfg"), shared.pop("params")
+    L = cfg.n_layers
+    warm, (cold_p, warm_p, prof_p) = prefix_spec_prompts(cfg)
+    pool_kw = dict(max_batch=4, page_size=PAGE, n_pages=1024)
+    two = SamplingParams(max_new_tokens=2)
+
+    # the same traffic with the cache and speculation off, every token's
+    # top-2 margin recorded
+    base = make_engine(torch, cfg, params, DEV, **pool_kw)
+    base.generate([warm], two)
+    with RecordMargins(torch, base) as rec:
+        base_reqs = [base.generate(p, SamplingParams(max_new_tokens=64))
+                     for p in (cold_p, warm_p)]
+        torch.cuda.synchronize()
+    base_streams = [[[int(t) for t in r.generated] for r in reqs]
+                    for reqs in base_reqs]
+    base_margins = [[rec.margins[r.req_id] for r in reqs]
+                    for reqs in base_reqs]
+    base_ttft = [median([r.ttft * 1e3 for r in reqs]) for reqs in base_reqs]
+    base_tpot = [median([r.tpot * 1e3 for r in reqs]) for reqs in base_reqs]
+    del base, rec, base_reqs
+    free_device_memory(torch)
+
+    eng = make_engine(torch, cfg, params, DEV, prefix_cache=True,
+                      speculative=SpecConfig(k=SPEC_K), **pool_kw)
+    eng.generate([warm], two)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    keep = {"packed_prefill_attention": "first",
+            "paged_decode_attention": "first"}
+    whole_pages = (PREFIX_LEN - 1) // PAGE * PAGE     # the len - 1 cap
+    rounds = {}
+    for i, (label, prompts, cached) in enumerate((
+            ("cold", cold_p, [0] * 4),
+            ("warm", warm_p, [PREFIX_LEN] * 3 + [whole_pages]))):
+        rnd = prefix_spec_round(torch, eng, prompts, L, keep)
+        probe, launches = rnd["probe"], rnd["launches"]
+        require_launches("serve_prefix_spec", launches, {
+            "packed_prefill_attention": L * probe.steps["prefill"],
+            "paged_decode_attention": L * probe.steps["decode"],
+            "gemv": 0, "paged_decode_attention_q4": 0, "matmul": 0,
+            "flash_attention": 0, "decode_attention": 0, "ssd_chunk": 0})
+        require_routes("serve_prefix_spec", probe.routes, launches, "wgmma")
+        if rnd["row"]["cached_tokens"] != cached:
+            raise AssertionError(f"{label} round attached "
+                                 f"{rnd['row']['cached_tokens']}, expected "
+                                 f"{cached}")
+        rnd["row"]["baseline"] = compare_to_baseline(
+            f"serve_prefix_spec {label}",
+            [[int(t) for t in r.generated] for r in rnd["reqs"]],
+            base_streams[i], base_margins[i])
+        rnd["row"]["baseline"].update(ttft_ms_median_cache_off=base_ttft[i],
+                                      tpot_ms_median_cache_off=base_tpot[i])
+        rounds[label] = rnd
+    del rnd, probe
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    served_cow = eng.cow_copies
+    stats = dict(prefix=eng.prefix_stats(), spec=eng.spec_stats())
+    warm_probe = rounds["warm"]["probe"]
+    warm_launches = rounds["warm"]["launches"]
+    main = {name: recheck(torch, timer, name, *warm_probe.inputs[name][0],
+                          warm_launches[name],
+                          "serve_prefix_spec warm main path")
+            for name in ON_PATH["serve_prefix_spec"]}
+    require_all_agree("serve_prefix_spec")
+    cow = check_cow(torch, eng, cold_p[3])
+    emit("serve_prefix_spec", model=cfg.name, n_layers=L, dtype=cfg.dtype,
+         spec_k=SPEC_K, prefix_len=PREFIX_LEN, tails=list(PREFIX_TAILS),
+         max_new_tokens=64,
+         rounds={k: v["row"] for k, v in rounds.items()},
+         cow_copies_served=served_cow, cow_forced=cow, peak_mem_gb=peak_gb,
+         **stats, recheck={k: {f: v[f] for f in ("kernel_ms", "bound_ms",
+                                                 "max_abs_err")}
+                           for k, v in main.items()})
+    profile_phase(torch, eng, prof_p, rounds["warm"]["row"]["wall_s"],
+                  of="serve_prefix_spec")
+    del eng, rounds, warm_probe, warm_launches
+    free_device_memory(torch)
+
+    # int8 weights and int4 KV: the cold round publishes (not counted),
+    # the warm round is held to B3 at every decode and verify step
+    eng = make_engine(torch, cfg, params, DEV, prefix_cache=True,
+                      speculative=SpecConfig(k=SPEC_K), weights_dtype="int8",
+                      kv_dtype="int4", **pool_kw)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    eng.generate([warm], two)
+    eng.generate(cold_p, SamplingParams(max_new_tokens=64))
+    torch.cuda.reset_peak_memory_stats()
+    rnd = prefix_spec_round(torch, eng, warm_p, L,
+                            {"packed_prefill_attention": "first",
+                             "paged_decode_attention_q4": "first"})
+    probe, launches = rnd["probe"], rnd["launches"]
+    steps = probe.steps
+    G = MainPathProbe.GEMV_PER_LAYER
+    require_launches("serve_prefix_spec_quantized", launches, {
+        "gemv": G * L * (steps["decode"] + steps["verify"]),
+        "paged_decode_attention_q4": L * steps["decode"],
+        "packed_prefill_attention": L * steps["prefill"],
+        "paged_decode_attention": 0, "matmul": 0, "flash_attention": 0,
+        "decode_attention": 0, "ssd_chunk": 0})
+    require_routes("serve_prefix_spec_quantized", probe.routes, launches,
+                   "wgmma")
+    if not probe.verify_rows or any(m != nc for m, nc in probe.verify_rows):
+        raise AssertionError(f"verify GEMV rows != N x (k+1): "
+                             f"{sorted(probe.verify_rows)}")
+    if rnd["row"]["cached_tokens"] != [PREFIX_LEN] * 3 + [whole_pages]:
+        raise AssertionError(f"warm round attached "
+                             f"{rnd['row']['cached_tokens']}")
+    main_q = {name: recheck(torch, timer, name, *probe.inputs[name][0],
+                            launches[name],
+                            "serve_prefix_spec_quantized main path")
+              for name in ("paged_decode_attention_q4",
+                           "packed_prefill_attention")}
+    # B3 at the first verify step and at the widest (N x (k+1) rows)
+    rows_at = sorted({probe.first_verify_rows,
+                      max(m for m, _ in probe.verify_rows)})
+    calls = {m: [recheck(torch, timer, "gemv",
+                         *probe.inputs["gemv_verify"][m][j], launches["gemv"],
+                         f"serve_prefix_spec_quantized verify step of {m} "
+                         f"rows, layer call {j}")
+                 for j in range(G)] for m in rows_at}
+    require_all_agree("serve_prefix_spec_quantized")
+    stats = dict(prefix=eng.prefix_stats(), spec=eng.spec_stats())
+    cow_q = check_cow(torch, eng, cold_p[3])
+    emit("serve_prefix_spec_quantized", weights_dtype="int8", kv_dtype="int4",
+         round=rnd["row"], verify_gemv_rows=sorted(probe.verify_rows),
+         first_verify_rows=probe.first_verify_rows,
+         gemv_verify={m: dict(
+             kernel_ms=sum(c["kernel_ms"] for c in cs),
+             plain_ms=sum(c["plain_ms"] for c in cs),
+             bound_ms=sum(c["bound_ms"] for c in cs),
+             library_ms=sum(c["library_ms"] for c in cs),
+             max_abs_err=max(c["max_abs_err"] for c in cs),
+             max_abs_err_f32=max(c["f32"]["max_abs_err"] for c in cs),
+             per="one layer: wq, wk, wv, wo, gate, up, down")
+             for m, cs in calls.items()},
+         cow_forced=cow_q, **stats,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         recheck={k: {f: v[f] for f in ("kernel_ms", "bound_ms",
+                                         "max_abs_err")}
+                  for k, v in main_q.items()})
+    del eng, probe, rnd
     free_device_memory(torch)
     return main
 
@@ -2321,9 +2716,11 @@ def preempt_phase(torch):
 class RecordMargins:
     """For the length of a ``with`` block, record the top-2 logit margin of
     every token a port engine appends, per request: the engine's sampler
-    keeps each program's last-position logits, its single device-to-host
-    transfer point hands each token on with its row's margin, and its
-    ``_append_token`` files the margin under the request."""
+    keeps each program's last-position logits (a speculative verify
+    window's ``verify_draft`` keeps every window position's), its single
+    device-to-host transfer point hands each token on with the margin of
+    the logits that chose it, and its ``_append_token`` files the margin
+    under the request."""
 
     def __init__(self, torch, eng):
         self.torch, self.eng = torch, eng
@@ -2334,35 +2731,43 @@ class RecordMargins:
         from repro_torch.serving import engine as eng_mod
         torch, eng = self.torch, self.eng
         rows = []
-        sample = eng_mod.sample_greedy
+        sample, verify = eng_mod.sample_greedy, eng_mod.verify_draft
         to_host, append = eng._to_host, eng._append_token
-        self._saved = sample
+        self._saved = (sample, verify)
 
         def sample_kept(logits):
             rows.append(logits[:, -1].float())
             return sample(logits)
 
+        def verify_kept(logits, *a, **k):
+            rows.append(logits.float())
+            return verify(logits, *a, **k)
+
         def host(arr):
+            # [N] sampled tokens, or a verify tick's [N, C+1] (C window
+            # tokens and the emission count, which has no margin)
             toks = to_host(arr)
             top2 = torch.topk(rows[-1], 2, dim=-1).values.cpu().numpy()
             rows.clear()
+            margin = top2[..., 0] - top2[..., 1]
             out = np.empty(toks.shape, object)
-            for i, t in enumerate(toks.tolist()):
-                out[i] = Tok(t)
-                out[i].margin = float(top2[i, 0] - top2[i, 1])
+            for i in np.ndindex(toks.shape):
+                out[i] = Tok(int(toks[i]))
+                out[i].margin = (float(margin[i]) if i[-1] < margin.shape[-1]
+                                 else float("nan"))
             return out
 
         def appended(req, tok):
             self.margins.setdefault(req.req_id, []).append(tok.margin)
             return append(req, tok)
 
-        eng_mod.sample_greedy = sample_kept
+        eng_mod.sample_greedy, eng_mod.verify_draft = sample_kept, verify_kept
         eng._to_host, eng._append_token = host, appended
         return self
 
     def __exit__(self, *exc):
         from repro_torch.serving import engine as eng_mod
-        eng_mod.sample_greedy = self._saved
+        eng_mod.sample_greedy, eng_mod.verify_draft = self._saved
         for attr in ("_to_host", "_append_token"):
             delattr(self.eng, attr)
         return False
@@ -2375,9 +2780,14 @@ class Tok(int):
 
 def parity_phase(torch):
     """Reduced llama2-7b and qwen3-8b: on the paged pool with f32 KV (a
-    roomy pool and one that forces preemption) and int8 KV, and on the
-    dense arena with whole-prompt prefill (a 2100-token prompt, above the
-    flash-attention threshold, among short ones) and with packed chunks;
+    roomy pool and one that forces preemption) and int8 KV; with the
+    prefix cache (f32 and int8 KV), n-gram speculation (k = 4), both, and
+    the padded ``packed_prefill=False`` prefill, over prompts that share a
+    16-token head (max_batch 2, 16 prefill tokens a tick, so later
+    requests attach what earlier ones published; 24 new tokens); and on
+    the dense arena with whole-prompt prefill (a 2100-token prompt, above
+    the flash-attention threshold, among short ones) and with packed
+    chunks;
     reduced mamba2-2.7b on the dense arena with whole-prompt prefill
     (prompts of 64, 12, 32 and 2 tokens) —
     a ``cuda`` engine (kernels) and a ``cpu`` engine (plain versions) on
@@ -2388,6 +2798,7 @@ def parity_phase(torch):
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.scheduler import PhaseAwareConfig
+    from repro_torch.serving.speculative import SpecConfig
 
     fns = kernel_functions()
     for name in ROUTED:
@@ -2408,6 +2819,17 @@ def parity_phase(torch):
         cases += [(dict(paged=False, max_len=2176,
                         phase=PhaseAwareConfig(prefill_chunk=c, pack_align=8)),
                    long + short[1:]) for c in (0, 64)]
+        head = rng.integers(0, cfg.vocab_size, 16, dtype=np.int32)
+        shared = [head] + [np.concatenate([head, rng.integers(
+            0, cfg.vocab_size, n, dtype=np.int32)]) for n in (6, 13, 3)]
+        pc = dict(max_batch=2, n_pages=40, page_size=8, max_new=24,
+                  phase=PhaseAwareConfig(max_decode_batch=2, prefill_chunk=8,
+                                         max_prefill_tokens=16, pack_align=8))
+        cases += [(dict(pc, **opt), shared) for opt in (
+            dict(prefix_cache=True), dict(prefix_cache=True, kv_dtype="int8"),
+            dict(speculative=SpecConfig(k=4)),
+            dict(prefix_cache=True, speculative=SpecConfig(k=4)),
+            dict(packed_prefill=False))]
         for kw, prompts in cases:
             parity_case(torch, name, cfg, params_dev, params_cpu, kw, prompts)
     # reduced mamba2: whole-prompt prefill through B7 (chunks of 32; the
@@ -2435,31 +2857,42 @@ def parity_phase(torch):
 
 def parity_case(torch, name, cfg, params_dev, params_cpu, kw, prompts):
     """One ``parity`` case: the same requests on a ``cuda`` and a ``cpu``
-    engine, compared by ``compare_parity``."""
+    engine (max_batch 4 and 8 new tokens unless ``kw`` says otherwise),
+    compared by ``compare_parity``."""
     from repro_torch.serving.sampling import SamplingParams
 
+    kw = dict(kw)
+    max_new = kw.pop("max_new", 8)
     runs = []
     for dev, params in ((DEV, params_dev), ("cpu", params_cpu)):
-        eng = make_engine(torch, cfg, params, dev, max_batch=4, **kw)
+        eng = make_engine(torch, cfg, params, dev, **{"max_batch": 4, **kw})
         with RecordMargins(torch, eng) as rec:
-            reqs = eng.generate(prompts, SamplingParams(max_new_tokens=8))
+            reqs = eng.generate(prompts,
+                                SamplingParams(max_new_tokens=max_new))
         runs.append((
             [(t.prefill_reqs, t.decode_reqs, t.preemptions,
-              t.prefill_tokens) for t in eng.tick_log],
+              t.prefill_tokens, t.spec_drafted, t.spec_accepted)
+             for t in eng.tick_log],
             [list(r.generated) for r in reqs], eng.preemptions,
-            [rec.margins[r.req_id] for r in reqs]))
+            [rec.margins[r.req_id] for r in reqs],
+            dict(prefix=eng.prefix_stats(), spec=eng.spec_stats())))
     label = (f"{name} {kw.get('kv_dtype', 'f32')} "
              f"{'paged' if kw.get('paged', True) else 'dense'} "
-             f"chunk={kw['phase'].prefill_chunk}")
+             f"chunk={kw['phase'].prefill_chunk}"
+             + (" prefix-cache" if kw.get("prefix_cache") else "")
+             + (" speculative" if kw.get("speculative") else "")
+             + ("" if kw.get("packed_prefill", True) else " padded"))
     compare_parity(label, runs, kw, len(prompts))
 
 
 def compare_parity(label, runs, kw, n_prompts):
     """Equal tick logs, and streams equal up to the CPU run's first
-    near-tie (margin <= 1e-3); emits the ``parity`` line."""
-    (log_g, out_g, pre_g, _), (log_c, out_c, _, margins) = runs
-    if log_g != log_c:
-        raise AssertionError(f"parity {label}: tick logs differ")
+    near-tie (margin <= 1e-3); emits the ``parity`` line.  With the prefix
+    cache the prefix stats must be equal and show hits; with speculation
+    the spec stats, and windows must have run.  A speculative run whose
+    stream parted at a near-tie drafts from another stream from there on,
+    so its tick log and stats are then reported, not required equal."""
+    (log_g, out_g, pre_g, _, st_g), (log_c, out_c, _, margins, st_c) = runs
     flips, compared = [], 0
     for i, (a, b) in enumerate(zip(out_g, out_c)):
         j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), len(b))
@@ -2471,9 +2904,19 @@ def compare_parity(label, runs, kw, n_prompts):
             raise AssertionError(
                 f"parity {label}: request {i} differs at token {j} where the "
                 f"CPU margin is {margins[i][j]}")
+    if (log_g != log_c or st_g != st_c) and not (flips
+                                                 and kw.get("speculative")):
+        raise AssertionError(f"parity {label}: tick logs or stats differ")
+    if kw.get("prefix_cache") and not st_g["prefix"]["hit_tokens"]:
+        raise AssertionError(f"parity {label}: the prefix cache never hit")
+    if kw.get("speculative") and not st_g["spec"]["windows"]:
+        raise AssertionError(f"parity {label}: no verify window ran")
     emit("parity", case=label, n_pages=kw.get("n_pages"), ticks=len(log_g),
          preemptions=pre_g, streams_equal=out_g == out_c,
-         positions_compared=compared, near_tie_flips=flips)
+         logs_equal=log_g == log_c, positions_compared=compared,
+         near_tie_flips=flips, hit_tokens=st_g["prefix"]["hit_tokens"],
+         spec_windows=st_g["spec"]["windows"],
+         spec_accepted=st_g["spec"]["accepted"])
     if kw.get("n_pages") == 12 and pre_g < 1:
         raise AssertionError(f"parity {label}: no preemption forced")
     if compared < n_prompts:
@@ -2554,7 +2997,10 @@ def main() -> int:
 
     run("kernel", kernel_phase, torch, timer)
     main_bench = run("bench", bench_phase, torch, timer)
-    main_path = run("serve", serve_phase, torch, timer)
+    shared = {}
+    main_path = run("serve", serve_phase, torch, timer, shared)
+    run("serve_prefix_spec", serve_prefix_spec_phase, torch, timer, shared)
+    shared.clear()
     main_quantized = run("serve_quantized", serve_quantized_phase, torch,
                          timer)
     main_dense = run("serve_dense", serve_dense_phase, torch, timer)

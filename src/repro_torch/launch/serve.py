@@ -29,6 +29,17 @@ kernel above 2048 tokens, and decode runs in the dense flash-decode kernel.
 prompt longer than the SSD chunk (256 tokens; 32 with ``--reduced``) must be
 a multiple of it, as in the reference.
 
+``--prefix-cache`` reuses shared-prompt KV pages copy-on-write through a
+radix prefix cache (paged pool only); ``--shared-prefix N`` opens every
+prompt with the same N tokens to exercise it.  ``--speculative`` turns on
+greedy draft/verify decoding with the model-free n-gram drafter,
+``--spec-k`` draft tokens a window (default 4; paged pool only).  The
+report then adds the cache's hit rate and the drafter's acceptance.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
+      --requests 4 --prompt-len 1400 --shared-prefix 1024 --max-new 64 \
+      --n-pages 1024 --prefix-cache --speculative --spec-k 4
+
 ``--stop-token ID`` (repeatable) ends a request when it emits that token
 (finish reason ``stop``).
 
@@ -85,6 +96,17 @@ def main(argv=None) -> int:
     ap.add_argument("--weights-dtype", default="f32",
                     choices=["f32", "int8"],
                     help="int8: per-output-channel quantized matmul weights")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix cache: shared-prompt KV pages are "
+                         "reused copy-on-write (paged only)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="tokens of system prompt shared by every request "
+                         "(exercises the prefix cache)")
+    ap.add_argument("--speculative", action="store_true",
+                    help="speculative decoding: n-gram draft/verify loop "
+                         "over the paged pool (paged only)")
+    ap.add_argument("--spec-k", type=int, default=None,
+                    help="draft tokens per verify window (default 4)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stop-token", type=int, action="append", default=[],
                     metavar="ID",
@@ -93,6 +115,13 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (the plain versions)")
     args = ap.parse_args(argv)
+    if args.spec_k is not None and not args.speculative:
+        ap.error("--spec-k requires --speculative")
+    if args.speculative and not args.paged:
+        ap.error("--speculative requires the paged pool (the draft/verify "
+                 "loop runs over it)")
+    if args.spec_k is None:
+        args.spec_k = 4
 
     import torch
 
@@ -104,6 +133,7 @@ def main(argv=None) -> int:
     from repro_torch.serving.engine import ServeConfig, ServingEngine
     from repro_torch.serving.sampling import SamplingParams
     from repro_torch.serving.scheduler import PhaseAwareConfig
+    from repro_torch.serving.speculative import SpecConfig
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -120,12 +150,17 @@ def main(argv=None) -> int:
         seed=args.seed, max_len=args.max_len, paged=args.paged,
         page_size=args.page_size,
         n_pages=args.n_pages, kv_dtype=args.kv_dtype,
-        weights_dtype=args.weights_dtype)
+        weights_dtype=args.weights_dtype, prefix_cache=args.prefix_cache,
+        speculative=SpecConfig(k=args.spec_k) if args.speculative else None)
     engine = ServingEngine(cfg, params, sc, device=device)
 
     rng = np.random.default_rng(args.seed)
-    prompts = [rng.integers(0, cfg.vocab_size, (args.prompt_len,),
-                            dtype=np.int32) for _ in range(args.requests)]
+    shared = rng.integers(0, cfg.vocab_size,
+                          (min(args.shared_prefix, args.prompt_len),),
+                          dtype=np.int32)
+    prompts = [np.concatenate([shared, rng.integers(
+        0, cfg.vocab_size, (args.prompt_len - len(shared),), dtype=np.int32)])
+        for _ in range(args.requests)]
     kernels = (decode_attention.paged_decode_attention,
                flash_attention.packed_prefill_attention, gemv_cid.gemv,
                decode_attention.paged_decode_attention_q4,
@@ -165,6 +200,19 @@ def main(argv=None) -> int:
           f"reserved={kv['reserved'] / 1e6:.2f}MB "
           f"peak-resident={kv['peak_resident'] / 1e6:.2f}MB "
           f"preemptions={engine.preemptions}")
+    if args.prefix_cache:
+        ps = engine.prefix_stats()
+        print(f"prefix-cache hit-rate={ps['hit_rate']:.2f} "
+              f"tokens-from-cache={ps['hit_tokens']:.0f} "
+              f"prefill-executed={ps['prefill_tokens_executed']:.0f} "
+              f"cow-copies={ps['cow_copies']:.0f} "
+              f"evicted-pages={ps['cache_evicted_pages']:.0f}")
+    if args.speculative:
+        ss = engine.spec_stats()
+        print(f"speculative drafter=ngram k={args.spec_k} "
+              f"windows={ss['windows']:.0f} "
+              f"acceptance={ss['acceptance_rate']:.2f} "
+              f"tokens/tick={ss['tokens_per_tick']:.2f}")
     print("kernel launches: " + " ".join(
         f"{k.__name__}={k.launches - n}" for k, n in zip(kernels, launches0)))
     return 0

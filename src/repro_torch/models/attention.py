@@ -18,6 +18,10 @@ dense per-slot decode arena.
   stream, through the packed-prefill kernel (HALO's CiM phase); a quantized
   pool is dequantized to the activation dtype for it, and the chunk's K/V
   are quantized on the way in.
+* ``attn_chunk_paged`` — a padded [N, C] batch of chunks against the pool:
+  the speculative verify window and the ``packed_prefill=False`` prefill.
+  The reference computes it in plain ``jnp`` with no Pallas kernel, so its
+  port is plain PyTorch.
 
 The serving paths update the pool or arena IN PLACE: the reference
 scatters functionally with ``.at[...].set(..., mode="drop")`` and relies
@@ -180,6 +184,125 @@ def attn_prefill(params, x, positions, *, n_heads, n_kv_heads, d_head,
             window=int(window)).transpose(1, 2)
     out = matmul(out.reshape(B, T, n_heads * d_head), params["wo"])
     return out, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill (paged pool, padded [N, C] rows)
+# ---------------------------------------------------------------------------
+
+class ChunkView(NamedTuple):
+    """What every layer of one run shares in a padded chunk batch against
+    the pool: the rows' absolute ``positions`` [N, C], their history
+    ``pages`` [N, W] (sentinels clamped; their entries are masked), the
+    ``valid`` [N, C, W*P + C] mask of keys each query attends (history,
+    then the chunk's own tokens), and ``write`` = (flat token rows, pages,
+    offsets) of the chunk's pool writes."""
+    positions: Any
+    pages: Any
+    valid: Any
+    write: Any
+
+
+def chunk_paged_view(offsets, lengths, slots, block_table, C: int, *,
+                     ring: int, page_size: int, n_pages: int,
+                     window) -> ChunkView:
+    """The ``ChunkView`` of rows ``n`` holding tokens [offsets[n],
+    offsets[n] + lengths[n]) of the request in slot ``slots[n]``, with
+    the masks and write discipline of the reference
+    (src/repro/models/attention.py:345-435): ring slot s holds the largest
+    position p < offset with p % ring == s; slots past the ring span and
+    on unallocated pages are invalid; keys are causal and windowed; only
+    each row's last ``ring`` tokens are written (earlier ones a later
+    token of the same chunk wraps onto must not be), only real rows
+    (slot < B), only allocated pages."""
+    dev = block_table.device
+    offs = torch.as_tensor(offsets, device=dev).long()
+    lens = torch.as_tensor(lengths, device=dev).long()
+    slot = torch.as_tensor(slots, device=dev).long()
+    B, W = block_table.shape
+    S = W * page_size
+    j = torch.arange(C, device=dev)
+    positions = offs[:, None] + j[None, :]                       # [N, C]
+    bt_rows = block_table.long()[slot.clamp(0, B - 1)]           # [N, W]
+    s_idx = torch.arange(S, device=dev)
+    prev_pos = offs[:, None] - 1 - torch.remainder(
+        offs[:, None] - 1 - s_idx[None, :], ring)
+    prev_pos = torch.where(s_idx[None, :] < ring, prev_pos, -1)
+    prev_pos = torch.where(
+        (bt_rows >= n_pages).repeat_interleave(page_size, dim=1), -1,
+        prev_pos)
+    chunk_pos = torch.where(j[None, :] < lens[:, None], positions, -1)
+    pk = torch.cat([prev_pos, chunk_pos], dim=1)[:, None, :]     # [N,1,S+C]
+    pq = positions[:, :, None]                                   # [N, C, 1]
+    w = int(window) if int(window) > 0 else _INT32_MAX
+    valid = (pk >= 0) & (pk <= pq) & ((pq - pk) < w)
+    keep = ((j[None, :] < lens[:, None]) & (j[None, :] >= lens[:, None] - ring)
+            & ((slot >= 0) & (slot < B))[:, None])
+    ridx = positions % ring
+    # pad positions may lie past a narrowed table (KVPool.block_tables'
+    # ``upto``): their column is clamped, and they are dropped below
+    w_page = torch.gather(bt_rows, 1, (ridx // page_size).clamp(max=W - 1))
+    keep = keep & (w_page >= 0) & (w_page < n_pages)
+    toks = torch.nonzero(keep.flatten()).flatten()
+    write = (toks, w_page.flatten()[toks], (ridx % page_size).flatten()[toks])
+    return ChunkView(positions, bt_rows.clamp(0, n_pages - 1), valid, write)
+
+
+def attn_chunk_paged(params, x, offsets, lengths, slots, cache, block_table,
+                     *, n_heads, n_kv_heads, d_head, theta, window,
+                     softcap=0.0, qk_norm=False, view=None):
+    """Chunked prefill writing K/V into the paged pool (the reference's
+    ``attn_chunk_paged``, src/repro/models/attention.py:345).
+
+    x: [N, C, d] — row ``n`` holds tokens [offsets[n], offsets[n] +
+    lengths[n]) of the request in slot ``slots[n]`` (pad rows: slot >= B);
+    ``cache`` {"k","v"[, scales]} of [n_pages, P, Hkv, Dh] addressed via
+    ``block_table`` [B, W].  Each row's history is gathered through its
+    table row BEFORE the chunk's own K/V are written (a ring entry the
+    chunk overwrites is still needed by its early queries); a quantized
+    pool's history pages are dequantized to x's dtype after the gather and
+    the chunk's K/V quantized on the way in.  The attention itself is the
+    reference's plain masked attention: scores and softmax in f32, P.V
+    with p in the history's dtype.  ``view`` is the run's precomputed
+    ``chunk_paged_view`` (made here when omitted).
+
+    Returns (out [N, C, d_model], cache) — the pool updated in place."""
+    N, C, _ = x.shape
+    n_pages, P = cache["k"].shape[0], cache["k"].shape[1]
+    if view is None:
+        view = chunk_paged_view(offsets, lengths, slots, block_table, C,
+                                ring=_paged_ring(window, n_pages, P),
+                                page_size=P, n_pages=n_pages, window=window)
+    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, d_head,
+                           view.positions, theta, qk_norm)
+    pages = view.pages
+    if "k_scale" in cache:
+        raw_k, raw_v = cache["k"][pages], cache["v"][pages]
+        if raw_k.dtype == torch.uint8:                  # packed int4
+            raw_k, raw_v = unpack_int4(raw_k), unpack_int4(raw_v)
+        prev_k = dequantize(raw_k, cache["k_scale"][pages]).to(x.dtype)
+        prev_v = dequantize(raw_v, cache["v_scale"][pages]).to(x.dtype)
+    else:
+        prev_k, prev_v = cache["k"][pages], cache["v"][pages]
+    S = pages.shape[1] * P
+    kv_k = torch.cat([prev_k.reshape(N, S, n_kv_heads, d_head), k], dim=1)
+    kv_v = torch.cat([prev_v.reshape(N, S, n_kv_heads, d_head), v], dim=1)
+    del prev_k, prev_v
+    G = n_heads // n_kv_heads
+    qg = q.reshape(N, C, n_kv_heads, G, d_head).float()
+    scores = torch.einsum("nqhgd,nkhd->nhgqk", qg,
+                          kv_k.float()) / math.sqrt(d_head)
+    scores = _maybe_softcap(scores, softcap)
+    scores = torch.where(view.valid[:, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("nhgqk,nkhd->nqhgd", probs.to(kv_v.dtype).float(),
+                       kv_v.float())
+    del scores, probs, kv_k, kv_v
+    out = matmul(ctx.reshape(N, C, n_heads * d_head).to(x.dtype),
+                 params["wo"])
+    _write_pool(cache, view.write, k.reshape(N * C, n_kv_heads, d_head),
+                v.reshape(N * C, n_kv_heads, d_head))
+    return out, cache
 
 
 # ---------------------------------------------------------------------------

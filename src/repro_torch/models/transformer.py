@@ -1,7 +1,9 @@
 """Model assembly for serving (port of the dense-attention and Mamba-2
 parts of src/repro/models/transformer.py): whole-prompt prefill, and
 one-token decode and packed chunked prefill over either the paged pool or
-the dense per-slot decode arena.
+the dense per-slot decode arena; a padded [N, C] chunk batch over the
+paged pool (``forward_chunk``: the speculative verify window, and prefill
+with ``packed_prefill=False``).
 
 The layer stack is a sequence of RUNS — maximal groups of layers with one
 block structure — whose parameters are stacked along a leading layer axis,
@@ -297,6 +299,16 @@ def _attn_layer_chunk_packed_paged(cfg, run, lp, x, seg, cache, bt,
     return _ffn_residual(cfg, lp, x + a), cache
 
 
+def _attn_layer_chunk_paged(cfg, run, lp, x, cache, bt, view):
+    """One attention layer of a padded chunk batch against the pool
+    (``view``: the run's ``attn_mod.chunk_paged_view``)."""
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    a, cache = attn_mod.attn_chunk_paged(
+        lp["attn"], h, None, None, None, cache, bt, view=view,
+        **_attn_kw(cfg, run))
+    return _ffn_residual(cfg, lp, x + a), cache
+
+
 def _attn_layer_chunk_packed(cfg, run, lp, x, seg, cache, view):
     """One attention layer of a packed prefill stream against the dense
     arena (``view``: the run's ``attn_mod.arena_packed_view``)."""
@@ -520,3 +532,51 @@ def forward_chunk_packed(params: Params, cfg: ModelConfig, tokens, starts,
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     last = (seg.starts + seg.lengths - 1).clamp(0, T - 1)        # [N]
     return lm_logits(params, cfg, x[0, last][:, None, :]), cache
+
+
+def forward_chunk(params: Params, cfg: ModelConfig, tokens, offsets,
+                  lengths, slots, cache: List[Any],
+                  block_tables: Optional[List[Any]] = None,
+                  return_all_logits: bool = False):
+    """Chunked prefill of a padded batch, writing K/V into the paged pool
+    (the reference's ``forward_chunk``, src/repro/models/transformer.py:725,
+    with ``block_tables``; without them, over the dense arena, it is ROADMAP
+    queue A, item 11).
+
+    tokens: [N, C] — N chunk rows padded to C tokens; row ``n`` holds
+    tokens [offsets[n], offsets[n] + lengths[n]) of the request in slot
+    ``slots[n]`` (pad rows carry slot >= B and drop their writes).
+
+    Returns (last_logits [N, 1, V] f32, cache): the logits of each row's
+    last valid position.  With ``return_all_logits`` the logits of EVERY
+    window position come back instead ([N, C, V]) — the speculative verify
+    program scores each draft token against the position that predicts
+    it; positions past a row's length are garbage the caller masks.  The
+    pool is updated in place."""
+    if block_tables is None:
+        raise NotImplementedError(
+            "forward_chunk over the dense arena (the padded [N, C] "
+            "attn_chunk): ROADMAP queue A, item 11")
+    tokens = torch.as_tensor(tokens).long()
+    x = embed_tokens(params, cfg, tokens)                        # [N, C, d]
+    N, C = x.shape[0], x.shape[1]
+    lengths = torch.as_tensor(lengths, device=x.device).long()
+    for r, run in enumerate(build_plan(cfg)):
+        if run.kind != "attn":
+            raise NotImplementedError(
+                f"chunked prefill over {run.kind!r} runs; gate on "
+                "supports_chunked_prefill()")
+        bt = block_tables[r]
+        R, P, n_pages = _pool_geometry(cache[r], run)
+        view = attn_mod.chunk_paged_view(offsets, lengths, slots, bt, C,
+                                         ring=R, page_size=P,
+                                         n_pages=n_pages, window=run.window)
+        for l in range(run.n_layers):
+            lp, lc = layer_view(params["runs"][r], l), layer_view(cache[r], l)
+            x, _ = _attn_layer_chunk_paged(cfg, run, lp, x, lc, bt, view)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if return_all_logits:
+        return lm_logits(params, cfg, x), cache
+    last = (lengths - 1).clamp(0, C - 1)
+    h_last = x[torch.arange(N, device=x.device), last][:, None, :]
+    return lm_logits(params, cfg, h_last), cache

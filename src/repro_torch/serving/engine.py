@@ -1,6 +1,6 @@
 """Serving engine: continuous batching that EXECUTES the phase scheduler's
-plan (port of the greedy, packed-prefill path of
-src/repro/serving/engine.py, over the paged pool or the dense arena).
+plan (port of the greedy path of src/repro/serving/engine.py, over the
+paged pool or the dense arena).
 
 One engine tick = one ``PhaseScheduler.plan_tick`` executed verbatim:
 
@@ -35,6 +35,28 @@ An SSM plan (Mamba-2) keeps a conv window and an f32 recurrent state per
 slot in the dense arena, prefills every prompt whole (its prefill runs the
 SSD chunk kernel) and cannot use the paged pool, as in the reference.
 
+On the paged pool, ``packed_prefill=False`` lays a tick's chunks out as a
+padded [N, C] batch instead (``forward_chunk``, plain attention).
+
+PREFIX CACHE (``prefix_cache=True``, paged only): a radix index over
+page-aligned token-block hashes (``serving/prefix_cache.py``) maps each
+new prompt's longest cached prefix to physical pages; admission attaches
+them to the slot's block tables (refcounted, no compute) and starts
+prefill past them, and completed prefills publish their prompt pages.
+Before any program writes a shared page the engine moves the slot to a
+private copy (``KVPool.ensure_writable`` and one device page copy of
+every leaf of the run, scale pages included).  Cached pages are evicted
+LRU-first whenever live work needs pages, before any live request is
+preempted.
+
+SPECULATIVE DECODING (``speculative=SpecConfig(drafter="ngram")``, paged
+only): every decode tick the n-gram drafter proposes up to k tokens per
+decoding request, and ONE verify window of the target model (a padded
+[N, k+1] chunk forward, logits at every position) accepts the longest
+prefix agreeing with the target's argmax plus one correction or bonus
+token; the packed [N, k+2] result crosses to the host once.  Rejected
+tokens' KV rolls back via ``KVPool.truncate``.
+
 The host logic (admission, planning, packing, preemption, retirement,
 counters) is the reference's, line for line where the slice reaches it, so
 the tick log of this engine equals the reference engine's on the same
@@ -58,6 +80,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import (
     forward,
+    forward_chunk,
     forward_chunk_packed,
     init_cache,
     prefill_into_arena,
@@ -66,17 +89,19 @@ from repro_torch.models.transformer import (
 )
 from repro_torch.serving.executor import make_executor
 from repro_torch.serving.kv_pool import KVPool
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.quantized_weights import quantize_params
 from repro_torch.serving.metrics import (MetricsRegistry, counter_attr,
                                          gauge_attr)
 from repro_torch.serving.sampling import (SamplingParams, require_greedy,
-                                          sample_greedy)
+                                          sample_greedy, verify_draft)
 from repro_torch.serving.scheduler import (
     PhaseScheduler,
     TickPlan,
     bucket_pow2 as _bucket,
     pack_chunks,
 )
+from repro_torch.serving.speculative import build_drafter
 from repro_torch.serving.types import (                      # noqa: F401
     Request,
     RequestOutput,
@@ -119,11 +144,15 @@ def _refused(cfg: ModelConfig, sc: ServeConfig) -> None:
     if sc.host_spill_pages and not sc.paged:
         raise ValueError("host_spill_pages > 0 requires paged=True "
                          "(the spill tier stores device pool pages)")
-    if sc.speculative is not None and not sc.paged:
-        raise ValueError(
-            "speculative decoding requires paged=True (the "
-            "draft/verify loop writes and rolls back through the "
-            "paged arena's block tables)")
+    if sc.speculative is not None:
+        if not sc.paged:
+            raise ValueError(
+                "speculative decoding requires paged=True (the "
+                "draft/verify loop writes and rolls back through the "
+                "paged arena's block tables)")
+        if cfg.n_codebooks > 1:
+            raise ValueError("speculative decoding does not support "
+                             "multi-codebook heads")
 
 
 def _unported(sc: ServeConfig, chunked: bool) -> Optional[str]:
@@ -132,10 +161,11 @@ def _unported(sc: ServeConfig, chunked: bool) -> Optional[str]:
     ``packed_prefill`` matters only to a chunked prefill: the reference
     reads it as ``packed_prefill and chunked``."""
     checks = [
-        (not sc.packed_prefill and chunked,
-         "packed_prefill=False (the padded [N, C] prefill batch): item 11"),
-        (sc.prefix_cache, "prefix_cache=True: item 7"),
-        (sc.speculative is not None, "speculative decoding: item 7"),
+        (not sc.packed_prefill and chunked and not sc.paged,
+         "packed_prefill=False on the dense arena (the padded [N, C] "
+         "prefill batch): item 11"),
+        (sc.speculative is not None and sc.speculative.drafter == "model",
+         "speculative drafter='model' (a draft model): item 7c"),
         (sc.host_spill_pages > 0, "host_spill_pages > 0 (host tier): item 9"),
         (not sc.default_sampling().greedy,
          "a stochastic default sampling (greedy=False): item 8"),
@@ -157,6 +187,11 @@ class ServingEngine:
     preemptions = counter_attr("serving_preemptions_total")
     recompute_preemptions = counter_attr("serving_recompute_preemptions_total")
     prefill_tokens_executed = counter_attr("serving_prefill_tokens_total")
+    cow_copies = counter_attr("serving_cow_copies_total")
+    cache_evicted_pages = counter_attr("serving_cache_evicted_pages_total")
+    spec_windows = counter_attr("serving_spec_windows_total")
+    spec_drafted = counter_attr("serving_spec_drafted_total")
+    spec_accepted = counter_attr("serving_spec_accepted_total")
     decode_tokens_emitted = counter_attr("serving_decode_tokens_total")
     decode_slot_ticks = counter_attr("serving_decode_slot_ticks_total")
     prefill_launches = counter_attr("serving_prefill_launches_total")
@@ -168,7 +203,9 @@ class ServingEngine:
     _n_mixed_ticks = counter_attr("serving_mixed_ticks_total")
 
     # the counters step() diffs to fill each TickRecord's per-tick fields
-    _TICK_DELTA_KEYS = ("serving_preemptions_total",)
+    _TICK_DELTA_KEYS = ("serving_preemptions_total",
+                        "serving_spec_drafted_total",
+                        "serving_spec_accepted_total")
 
     def __init__(self, cfg: ModelConfig, params: Any, sc: ServeConfig,
                  *, device=None):
@@ -212,6 +249,19 @@ class ServingEngine:
             self.cache = self.pool.caches
         else:
             self.cache = init_cache(cfg, B, S, self.device)
+        self.prefix: Optional[PrefixCache] = None
+        if sc.paged and sc.prefix_cache:
+            self.prefix = PrefixCache(sc.page_size,
+                                      self.pool.shareable_capacity(),
+                                      metrics=self.metrics)
+        self.spec = sc.speculative
+        self.drafter = None
+        if self.spec is not None:
+            self.drafter = build_drafter(self.spec)
+            # rings bound rollback: a draft written at position p >= R
+            # would overwrite live history at p - R that a rejection cannot
+            # restore — speculation stops there (KVPool.rollback_bound)
+            self._rollback_bound = self.pool.rollback_bound()
         # the dense arena pins its full footprint up front; the split
         # prices a slot's handoff as the reference's does: seq-axis leaves
         # ([L, B, S, ...]) per token, recurrent-state leaves (SSM conv and
@@ -246,10 +296,16 @@ class ServingEngine:
         self.kv_resident_peak = 0        # peak allocated KV bytes
         self.recompute_preemptions = 0   # every preemption recomputes here
         self.prefill_tokens_executed = 0  # chunk tokens actually computed
+        self.cow_copies = 0              # device page copies (COW)
+        self.cache_evicted_pages = 0     # pages reclaimed from the cache
+        self.spec_windows = 0            # verify windows executed
+        self.spec_drafted = 0            # draft tokens verified
+        self.spec_accepted = 0           # draft tokens accepted
         self.decode_tokens_emitted = 0
         self.decode_slot_ticks = 0       # (request, tick) decode occupancies
         self._next_id = 0
         self.chunked = chunked
+        self._packed = sc.packed_prefill and chunked
         self.prefill_launches = 0        # prefill phase-program calls
         self.prefill_rows_executed = 0   # token rows computed (incl. pad)
         self.executor = make_executor(sc.executor, {
@@ -258,6 +314,8 @@ class ServingEngine:
             "packed": self._prefill_packed_impl,
             "decode_paged": self._decode_paged_impl,
             "packed_paged": self._prefill_packed_paged_impl,
+            "chunk_paged": self._prefill_chunk_paged_impl,
+            "verify": self._verify_impl,
         }, metrics=self.metrics)
 
     # -- program table (owned by the executor) ---------------------------------
@@ -316,6 +374,32 @@ class ServingEngine:
             cache, block_tables=block_tables,
             pack_align=self.sc.phase.pack_align)
         return sample_greedy(logits), cache
+
+    @torch.inference_mode()
+    def _prefill_chunk_paged_impl(self, params, tokens, offsets, lengths,
+                                  slots, cache, block_tables, all_greedy):
+        """Padded [N, C] chunk prefill into the page pool (block-table
+        scatter).  Returns [N] int32 tokens (row i samples chunk i)."""
+        logits, cache = forward_chunk(params, self.cfg, tokens, offsets,
+                                      lengths, slots, cache,
+                                      block_tables=block_tables)
+        return sample_greedy(logits), cache
+
+    @torch.inference_mode()
+    def _verify_impl(self, params, tokens, offsets, lengths, slots, cache,
+                     block_tables, draft, all_greedy):
+        """Speculative verify: ONE chunk forward of the target model over
+        each row's [last_committed, d_1, .., d_k] window against the pool
+        (K/V written like any prefill chunk), logits at EVERY window
+        position, greedy accept on the device.  Returns one packed [N, C+1]
+        int32 array — C candidate tokens plus the emission count — so the
+        host reads the tick's result in one transfer."""
+        logits, cache = forward_chunk(params, self.cfg, tokens, offsets,
+                                      lengths, slots, cache,
+                                      block_tables=block_tables,
+                                      return_all_logits=True)
+        toks, n_emit = verify_draft(logits, draft, lengths - 1)
+        return torch.cat([toks, n_emit[:, None]], dim=1), cache
 
     @torch.inference_mode()
     def _decode_paged_impl(self, params, tokens, cache, pos, block_tables,
@@ -387,11 +471,87 @@ class ServingEngine:
             req.slot = slot
             req.state = RequestState.PREFILLING
             self.slot_req[slot] = req
+            self._try_prefix_attach(req)
             admitted.append(req)
         return admitted
 
     def _by_id(self) -> Dict[int, Request]:
         return {r.req_id: r for r in self.slot_req if r is not None}
+
+    # -- prefix cache ------------------------------------------------------------
+    def _try_prefix_attach(self, req: Request) -> None:
+        """Admission-time prefix lookup: point the slot's leading block-
+        table rows at the longest cached prefix (shared, refcounted) and
+        start prefill past it.  The match is capped at len - 1 so at
+        least one token remains to prefill — the prompt's last-token
+        logits seed decoding."""
+        if self.prefix is None:
+            return
+        tokens = self._effective_tokens(req)
+        matched, pages = self.prefix.match(
+            tokens, max_tokens=int(tokens.shape[-1]) - 1)
+        if matched <= 0:
+            return
+        self.pool.attach(req.slot, pages, matched)
+        req.prefill_pos = matched
+        req.cached_tokens = matched
+
+    def _publish_prefix(self, req: Request) -> None:
+        """Publish a freshly-prefilled request's PROMPT pages into the
+        cache.  A sliding-window run's pages are position-pure only while
+        the prefilled length has not wrapped its ring; once it has, the
+        prefix is unpublishable."""
+        if self.prefix is None:
+            return
+        if self._effective_len(req) > self.pool.shareable_capacity():
+            return
+        prompt = self._effective_tokens(req)[..., :req.prompt_len]
+        self.prefix.insert(prompt, self.pool, req.slot)
+
+    def _reclaim_cache(self, n_pages: int) -> int:
+        """Evict LRU cached blocks until at least ``n_pages`` pages are
+        actually FREE again (blocks still pinned by live slots are
+        skipped).  Cached pages are reclaimable capacity: this always runs
+        before any live request is preempted."""
+        if self.prefix is None:
+            return 0
+        freed = self.prefix.evict(self.pool, max(n_pages, 1))
+        self.cache_evicted_pages += freed
+        return freed
+
+    @torch.inference_mode()
+    def _copy_pages(self, copies) -> None:
+        """Mirror ``KVPool.ensure_writable``'s accounting on the device:
+        page ``old``'s rows move to ``new`` in EVERY leaf of run ``r``'s
+        pool (K, V and, quantized, their scale pages), in place, before the
+        writer's program launches.  Pool leaves are [L, n_pages, P, ...]:
+        pages live on axis 1."""
+        by_run: Dict[int, Tuple[List[int], List[int]]] = {}
+        for r, old, new in copies:
+            olds, news = by_run.setdefault(r, ([], []))
+            olds.append(old)
+            news.append(new)
+        for r, (olds, news) in by_run.items():
+            src = torch.tensor(olds, device=self.device)
+            dst = torch.tensor(news, device=self.device)
+            for leaf in self.cache[r].values():
+                leaf.index_copy_(1, dst, leaf.index_select(1, src))
+        self.cow_copies += len(copies)
+
+    def _ensure_writable(self, slot: int, start: int, end: int) -> bool:
+        """COW every shared page a write to [start, end) would dirty,
+        reclaiming cached pages for copy targets if needed.  False if
+        copy targets remain unavailable (caller preempts or defers)."""
+        copies = self.pool.ensure_writable(slot, start, end)
+        if copies is None:
+            # reclaim exactly the copy-target deficit (a multi-page chunk
+            # may need several targets per run)
+            self._reclaim_cache(self.pool.cow_deficit(slot, start, end))
+            copies = self.pool.ensure_writable(slot, start, end)
+        if copies is None:
+            return False
+        self._copy_pages(copies)
+        return True
 
     # -- recompute-on-resume -----------------------------------------------------
     def _effective_tokens(self, req: Request) -> np.ndarray:
@@ -409,7 +569,10 @@ class ServingEngine:
         """Evict ``req`` from its slot: pages back to the pool, request back
         to WAITING (age-ordered), resumed by recompute."""
         assert self.paged and req.slot >= 0
+        if self.drafter is not None:
+            self.drafter.release(req.slot)
         req.prefill_pos = 0
+        req.cached_tokens = 0           # re-matched at re-admission
         self.recompute_preemptions += 1
         self.pool.release(req.slot)
         self.slot_req[req.slot] = None
@@ -445,6 +608,9 @@ class ServingEngine:
         if not any(r is not None and r.state == RequestState.PREFILLING
                    for r in self.slot_req):
             return
+        # cached pages yield before any live request does
+        if self._reclaim_cache(1):
+            return
         holders = [r for r in self.slot_req
                    if r is not None and self.pool.len_of(r.slot) > 0]
         if not holders:
@@ -459,6 +625,7 @@ class ServingEngine:
         req.generated.append(int(np.asarray(tok).reshape(-1)[0]))
 
     def _start_decoding(self, req: Request, tok) -> None:
+        self._publish_prefix(req)       # prompt pages complete & unwrapped
         self.slot_pos[req.slot] = self._effective_len(req)
         if req.sampling.max_new_tokens == 0 and not req.generated:
             # prefill-only request: the seeding sample is discarded
@@ -473,7 +640,10 @@ class ServingEngine:
             self._retire(req)
 
     def _stream_reason(self, req: Request) -> Optional[str]:
-        """Token-stream termination only (max_new / eos / stop)."""
+        """Token-stream termination only (max_new / eos / stop) — what a
+        verify window's emission loop may stop on.  The position bound is
+        not checked here: a window commits its slot_pos jump before the
+        tokens append, so mid-emission it would fire early."""
         if len(req.generated) >= req.max_new_tokens:
             return "length"
         if req.generated:
@@ -500,6 +670,8 @@ class ServingEngine:
         req.t_done = time.monotonic()
         self.metrics.observe("serving_ttft_seconds", req.ttft)
         self.metrics.observe("serving_tpot_seconds", req.tpot)
+        if self.drafter is not None:
+            self.drafter.release(req.slot)
         if self.paged:
             self.pool.release(req.slot)
         self.slot_req[req.slot] = None
@@ -507,13 +679,20 @@ class ServingEngine:
         self.done.append(req)
 
     def _grow_for_decode(self, r: Request) -> bool:
-        """Secure this tick's one-token write for ``r``; on exhaustion
-        preempt the youngest page holder.  False iff ``r`` itself was
-        evicted."""
+        """Secure this tick's one-token write for ``r``: grow the slot by
+        one position and COW any shared page that position lands in.
+        Exhaustion order: reclaim cached pages first, preempt the youngest
+        page holder only after the cache is dry.  False iff ``r`` itself
+        was evicted."""
         pos = int(self.slot_pos[r.slot])
         while True:
             if self.pool.grow(r.slot, pos + 1):
-                return True
+                if self._ensure_writable(r.slot, pos, pos + 1):
+                    return True
+                # grown but no COW target: roll back before freeing pages
+                self.pool.shrink(r.slot, pos)
+            elif self._reclaim_cache(1):
+                continue
             victim = self._preemption_victim(r)
             self._preempt(victim)
             if victim is r:
@@ -547,19 +726,29 @@ class ServingEngine:
         if self.paged:
             # claim the chunks' pages; the scheduler planned against the
             # pool headroom, so this succeeds — trim defensively if a
-            # same-tick race says otherwise
+            # same-tick race says otherwise.  Any SHARED page the chunk
+            # would dirty is copied first; without a copy target even
+            # after reclaiming cached pages, the chunk rolls back and
+            # waits for a later tick
             claimed = []
             for req, take in chunks:
                 take = min(take, self.pool.max_grow_tokens(req.slot))
                 if take <= 0 or not self.pool.grow(req.slot,
                                                    req.prefill_pos + take):
                     continue
+                if not self._ensure_writable(req.slot, req.prefill_pos,
+                                             req.prefill_pos + take):
+                    self.pool.shrink(req.slot, req.prefill_pos)
+                    continue
                 claimed.append((req, take))
             chunks = claimed
             if not chunks:
                 return
         self._prefill_progress = True
-        toks = self._launch_packed_prefill(plan, chunks)
+        if self._packed:
+            toks = self._launch_packed_prefill(plan, chunks)
+        else:
+            toks = self._launch_padded_prefill(plan, chunks)
         self.prefill_tokens_executed += sum(take for _, take in chunks)
         self.prefill_launches += 1
         sampled = None
@@ -569,6 +758,33 @@ class ServingEngine:
                 if sampled is None:
                     sampled = self._to_host(toks)   # one transfer per tick
                 self._start_decoding(req, sampled[i])
+
+    def _launch_padded_prefill(self, plan: TickPlan, chunks) -> Any:
+        """The tick's chunks as one padded [N, C] batch over the page pool
+        (pow2 buckets bound the shapes).  Row i samples chunk i."""
+        N = _bucket(len(chunks), self.sc.max_batch)
+        C = _bucket(max(take for _, take in chunks),
+                    self.sc.phase.prefill_chunk)
+        tokens = np.zeros((N, C), np.int32)
+        offs = np.zeros((N,), np.int32)
+        lens = np.zeros((N,), np.int32)
+        slots = np.full((N,), self.sc.max_batch, np.int32)  # pad rows: drop
+        for i, (req, take) in enumerate(chunks):
+            sl = slice(req.prefill_pos, req.prefill_pos + take)
+            tokens[i, :take] = self._effective_tokens(req)[sl]
+            offs[i] = req.prefill_pos
+            lens[i] = take
+            slots[i] = req.slot
+        all_greedy = True
+        self.prefill_rows_executed += N * C
+        self._note_compile(plan.prefill_group, "chunk_paged", (N, C),
+                           all_greedy)
+        toks, self.cache = self._program(plan.prefill_group, "chunk_paged")(
+            self.params, self._tensor(tokens), self._tensor(offs),
+            self._tensor(lens), self._tensor(slots), self.cache,
+            self.pool.block_tables(upto=int((offs + lens).max())),
+            all_greedy)
+        return toks
 
     def _launch_packed_prefill(self, plan: TickPlan, chunks) -> Any:
         """The tick's chunks as ONE flat [T] token stream: chunk i occupies
@@ -611,14 +827,126 @@ class ServingEngine:
                 *args, all_greedy)
         return toks
 
+    # -- speculative draft/verify ------------------------------------------------
+    def _spec_budget(self, r: Request) -> int:
+        """Largest draft window this tick could commit AND roll back for
+        ``r``, before any drafter runs: the ring rollback bound, the pool
+        length bound, the remaining token budget (a window emits up to
+        k+1 tokens), and the pages the pool can grant without preempting
+        anyone (speculation is opportunistic — the one-token decode path
+        owns the preemption machinery)."""
+        pos = int(self.slot_pos[r.slot])
+        return min(
+            self.spec.k,
+            self._rollback_bound - pos - 1,
+            self.pool.length_bound - pos - 2,
+            r.max_new_tokens - len(r.generated) - 1,
+            self.pool.max_grow_tokens(r.slot) - 1,
+        )
+
+    def _run_verify_tick(self, plan: TickPlan,
+                         rows: List[Tuple[Request, np.ndarray]]) -> None:
+        """Execute the tick's verify windows as ONE padded batch on the
+        verify worker group and commit the results: accepted drafts + one
+        correction/bonus token per row, with the rejected tail's KV rolled
+        back via ``KVPool.truncate``."""
+        kmax = max(int(d.shape[-1]) for _, d in rows)
+        N = _bucket(len(rows), self.sc.max_batch)
+        C = _bucket(kmax + 1, self.spec.k + 1)
+        tokens = np.zeros((N, C), np.int32)
+        draft = np.zeros((N, C - 1), np.int32)
+        offs = np.zeros((N,), np.int32)
+        lens = np.zeros((N,), np.int32)
+        slots = np.full((N,), self.sc.max_batch, np.int32)  # pad rows: drop
+        for i, (r, d) in enumerate(rows):
+            kd = int(d.shape[-1])
+            tokens[i, 0] = r.generated[-1]
+            tokens[i, 1:1 + kd] = d
+            draft[i, :kd] = d
+            offs[i] = self.slot_pos[r.slot]
+            lens[i] = kd + 1
+            slots[i] = r.slot
+        all_greedy = True
+        self._note_compile(plan.verify_group, "verify", (N, C), all_greedy)
+        out, self.cache = self._program(plan.verify_group, "verify")(
+            self.params, self._tensor(tokens), self._tensor(offs),
+            self._tensor(lens), self._tensor(slots), self.cache,
+            self.pool.block_tables(upto=int((offs + lens).max())),
+            self._tensor(draft), all_greedy)
+        packed = self._to_host(out)                 # [N, C+1], one transfer
+        for i, (r, d) in enumerate(rows):
+            kd = int(d.shape[-1])
+            n_emit = int(packed[i, -1])
+            accepted = n_emit - 1
+            self.decode_slot_ticks += 1
+            self.spec_windows += 1
+            self.spec_drafted += kd
+            self.spec_accepted += accepted
+            # the window inputs [gen[-1], d_1..d_acc] are committed; the
+            # final emitted token is fed next tick; the rejected tail
+            # (positions past pos + acc + 1) rolls back
+            new_pos = int(self.slot_pos[r.slot]) + accepted + 1
+            self.pool.truncate(r.slot, new_pos)
+            self.slot_pos[r.slot] = new_pos
+            for t in packed[i, :n_emit]:
+                self._append_token(r, t)
+                self.decode_tokens_emitted += 1
+                if self._stream_reason(r) is not None:  # eos / max_new clip
+                    break
+            self.drafter.observe(r.slot, r.req_id, self._effective_len(r))
+            if self._finished(r):
+                self._retire(r)
+
+    def _plan_speculation(self, active: List[Request]
+                          ) -> Tuple[List[Tuple[Request, np.ndarray]],
+                                     List[Request]]:
+        """Partition this tick's decode occupants into verify rows (the
+        drafter proposed something usable, window pages secured, shared
+        pages COW'd) and plain one-token decoders (everything else)."""
+        budgets: Dict[int, int] = {}
+        plain: List[Request] = []
+        candidates: List[Request] = []
+        for r in sorted(active, key=lambda r: r.req_id):
+            budgets[r.req_id] = self._spec_budget(r)
+            (candidates if budgets[r.req_id] >= 1 else plain).append(r)
+        proposals = self.drafter.propose_batch(
+            [(r.slot, r.req_id, self._effective_tokens(r))
+             for r in candidates],
+            self.spec.k) if candidates else {}
+        rows: List[Tuple[Request, np.ndarray]] = []
+        for r in candidates:
+            d = proposals.get(r.slot)
+            kd = min(budgets[r.req_id], int(d.shape[-1])) \
+                if d is not None else 0
+            if kd < 1:
+                plain.append(r)
+                continue
+            d = np.asarray(d[:kd], np.int32)
+            pos = int(self.slot_pos[r.slot])
+            if not self.pool.grow(r.slot, pos + kd + 1):
+                plain.append(r)                     # raced: fall back
+                continue
+            if not self._ensure_writable(r.slot, pos, pos + kd + 1):
+                self.pool.shrink(r.slot, pos)       # roll the claim back
+                plain.append(r)
+                continue
+            rows.append((r, d))
+        return rows, plain
+
     def _run_decode_tick(self, plan: TickPlan) -> None:
         reqs = self._by_id()
         active = [reqs[rid] for rid in plan.decode_reqs
                   if rid in reqs and reqs[rid].state == RequestState.DECODING]
+        if self.spec is not None and active:
+            rows, active = self._plan_speculation(active)
+            if rows:
+                self._run_verify_tick(plan, rows)
         if self.paged and active:
-            # each decode write may cross into a fresh page; grow
-            # oldest-first and, when the pool is out, PREEMPT the youngest
-            # page holder (it re-queues for recompute)
+            # each decode write may cross into a fresh page (or, shared-
+            # prefix, into a page another request still reads — COW);
+            # grow oldest-first and, when the pool is out, reclaim cached
+            # pages first and only then PREEMPT the youngest page holder
+            # (it re-queues for recompute)
             survivors = []
             for r in sorted(active, key=lambda r: r.req_id):
                 if r.state != RequestState.DECODING or r.slot < 0:
@@ -698,19 +1026,22 @@ class ServingEngine:
             key=lambda e: e[0])
         decoding = [r.req_id for r in self.slot_req
                     if r is not None and r.state == RequestState.DECODING]
+        spec_k = self.spec.k if self.spec is not None else 0
         if self.paged:
             # token-level admission: prefill work is planned against the
-            # pool's free pages, with this tick's decode growth reserved
+            # pool's free pages, with this tick's decode growth reserved (a
+            # verify window grows by up to k+1 tokens)
             headroom = self.pool.headroom_pages(
                 [self.pool.len_of(r.slot) for r in self.slot_req
                  if r is not None and r.state == RequestState.DECODING],
-                growth=1)
+                growth=spec_k + 1)
             plan = self.scheduler.plan_tick(
                 prefilling, decoding, free_pages=headroom,
                 page_size=self.sc.page_size,
-                capacity=self.pool.widest_capacity(), spec_k=0)
+                capacity=self.pool.widest_capacity(), spec_k=spec_k)
         else:
-            plan = self.scheduler.plan_tick(prefilling, decoding, spec_k=0)
+            plan = self.scheduler.plan_tick(prefilling, decoding,
+                                            spec_k=spec_k)
         if plan.prefill_chunks:
             self._run_prefill_tick(plan)
         if plan.decode_reqs:
@@ -732,6 +1063,8 @@ class ServingEngine:
             wall_s=time.monotonic() - t0,
             preemptions=int(delta["serving_preemptions_total"]),
             kv_resident_bytes=resident,
+            spec_drafted=int(delta["serving_spec_drafted_total"]),
+            spec_accepted=int(delta["serving_spec_accepted_total"]),
             new_compiles=self.executor.tick_new_compiles)
         self.metrics.observe("serving_tick_wall_seconds", rec.wall_s)
         self.tick_log.append(rec)
@@ -822,6 +1155,40 @@ class ServingEngine:
         return {"reserved": self._dense_kv_bytes,
                 "resident": self._dense_kv_bytes,
                 "peak_resident": self._dense_kv_bytes}
+
+    def prefix_stats(self) -> Dict[str, float]:
+        """Prefix-cache effectiveness: hit rate, tokens served from cache
+        vs prefill tokens actually computed, COW copies, evictions.
+        Zeros when the cache is off (the comparison baseline)."""
+        out = {
+            "prefill_tokens_executed": float(self.prefill_tokens_executed),
+            "cow_copies": float(self.cow_copies),
+            "cache_evicted_pages": float(self.cache_evicted_pages),
+            "hit_rate": 0.0,
+            "hit_tokens": 0.0,
+            "cached_pages": 0.0,
+        }
+        if self.prefix is not None:
+            s = self.prefix.stats()
+            out["hit_rate"] = float(s["hit_rate"])
+            out["hit_tokens"] = float(s["hit_tokens"])
+            out["cached_pages"] = float(s["cached_pages"])
+        return out
+
+    def spec_stats(self) -> Dict[str, float]:
+        """Speculative-decoding effectiveness: ``acceptance_rate`` =
+        accepted / drafted; ``tokens_per_tick`` = tokens emitted per
+        (request, decode-tick) occupancy — 1.0 exactly without
+        speculation, > 1 as soon as any draft survives verification."""
+        return {
+            "windows": float(self.spec_windows),
+            "drafted": float(self.spec_drafted),
+            "accepted": float(self.spec_accepted),
+            "acceptance_rate": self.spec_accepted / max(self.spec_drafted, 1),
+            "decode_tokens": float(self.decode_tokens_emitted),
+            "tokens_per_tick": (self.decode_tokens_emitted
+                                / max(self.decode_slot_ticks, 1)),
+        }
 
     def phase_occupancy(self) -> Dict[str, float]:
         """Fractions of ticks running prefill / decode / both."""

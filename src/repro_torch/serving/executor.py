@@ -30,9 +30,11 @@ class Executor:
 
     # the phase-program kinds the port serves: one-token decode and the
     # packed-stream prefill over the paged pool (``*_paged``) or the dense
-    # arena, and the dense arena's whole-prompt prefill
+    # arena, the dense arena's whole-prompt prefill, and over the pool the
+    # padded [N, C] chunk prefill and the speculative verify window (the
+    # dense arena's padded "chunk" is ROADMAP queue A, item 11)
     KINDS = frozenset({"whole", "decode", "packed", "decode_paged",
-                       "packed_paged"})
+                       "packed_paged", "chunk_paged", "verify"})
 
     # lifetime counter in the metrics registry (the engine shares its own,
     # so counts()/snapshot() and this attribute read the same cell)

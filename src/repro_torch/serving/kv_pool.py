@@ -20,7 +20,11 @@ Two layers:
   the kernels mask unwritten entries, and zeros keep even a masked read
   finite).  The model updates the pages in place.  ``kv_dtype`` "int8"
   stores int8 pages, "int4" packed nibble pairs at half the head width,
-  both beside one f32 scale page per (position, kv head).  The host spill
+  both beside one f32 scale page per (position, kv head).  It also
+  carries the prefix cache's sharing queries (``shareable_capacity``,
+  ``prefix_pages``, per-run ``attach`` / ``retain`` / ``release_ref``),
+  copy-on-write across runs (``cow_deficit``, ``ensure_writable``) and
+  speculative rollback (``truncate``, ``rollback_bound``).  The host spill
   tier arrives with ROADMAP queue A, item 9.
 """
 
@@ -345,10 +349,28 @@ class KVPool:
             room = cov if room is None else min(room, cov)
         return self.capacity if room is None else max(room, 0)
 
+    # -- prefix-sharing queries ----------------------------------------------------
+    def shareable_capacity(self) -> int:
+        """Longest prefix (tokens) whose pages are position-pure in EVERY
+        run: up to the narrowest ring span, logical page ``i`` is table row
+        ``i`` for all runs, so one per-run page list describes the prefix.
+        Beyond a run's ring span the ring has wrapped and its pages mix
+        positions — those are never shared."""
+        return min(p.capacity for p in self.pools)
+
     def widest_capacity(self) -> int:
         """Logical span of the widest run — the scheduler's conservative
         page-charge basis (see ``PhaseScheduler.plan_tick``)."""
         return max(p.capacity for p in self.pools)
+
+    def prefix_pages(self, slot: int, n_tokens: int) -> List[List[int]]:
+        """Per-run physical pages backing the slot's first ``n_tokens``
+        tokens (``n_tokens`` page-aligned, within ``shareable_capacity``)."""
+        if n_tokens % self.page_size or n_tokens > self.shareable_capacity():
+            raise ValueError(f"prefix of {n_tokens} tokens is not "
+                             "page-aligned/shareable")
+        n = n_tokens // self.page_size
+        return [[int(q) for q in p.table[slot, :n]] for p in self.pools]
 
     # -- mutations ---------------------------------------------------------------
     def grow(self, slot: int, new_len: int) -> bool:
@@ -364,32 +386,127 @@ class KVPool:
             done.append(p)
         return True
 
+    def attach(self, slot: int, pages: Sequence[Sequence[int]],
+               new_len: int) -> None:
+        """Point an empty slot at cached prefix pages (one page list per
+        run) — shared, refcounted, no allocation.  ``new_len`` must be
+        page-aligned and within ``shareable_capacity``."""
+        if new_len % self.page_size or new_len > self.shareable_capacity():
+            raise ValueError(f"attach of {new_len} tokens is not "
+                             "page-aligned/shareable")
+        for p, pp in zip(self.pools, pages):
+            p.attach(slot, pp, new_len)
+
+    def _shared_rows(self, p: PagePool, slot: int, start: int,
+                     end: int) -> List[int]:
+        """Rows of ``slot`` a write to [start, end) dirties whose page is
+        allocated and shared."""
+        return [row for row in p.rows_touched(start, end)
+                if int(p.table[slot, row]) < p.n_pages
+                and p.is_shared(int(p.table[slot, row]))]
+
+    def cow_deficit(self, slot: int, start: int, end: int) -> int:
+        """Free pages still missing before ``ensure_writable(slot, start,
+        end)`` could supply every COW copy target (max across runs; 0 when
+        it would succeed right now)."""
+        deficit = 0
+        for p in self.pools:
+            need = len(self._shared_rows(p, slot, start, end))
+            deficit = max(deficit, need - p.free_pages())
+        return max(deficit, 0)
+
+    def ensure_writable(self, slot: int, start: int, end: int
+                        ) -> Optional[List[tuple]]:
+        """Copy-on-write every SHARED page a write to logical positions
+        [start, end) of ``slot`` would dirty, across all runs.  Returns
+        [(run, old_page, new_page)] — the caller must mirror each entry
+        with a device page copy BEFORE launching the write — or None,
+        state unchanged, if some run's free list cannot supply its copy
+        targets (the caller evicts/preempts and retries)."""
+        planned: List[tuple] = []                 # (run, pool, row)
+        for r, p in enumerate(self.pools):
+            rows = self._shared_rows(p, slot, start, end)
+            if len(rows) > p.free_pages():
+                return None                       # nothing mutated yet
+            planned.extend((r, p, row) for row in rows)
+        copies: List[tuple] = []
+        for r, p, row in planned:
+            moved = p.cow(slot, row)
+            assert moved is not None
+            copies.append((r, *moved))
+        return copies
+
     def shrink(self, slot: int, new_len: int) -> None:
         """Drop every run's references beyond ``new_len``."""
         for p in self.pools:
             p.shrink(slot, new_len)
 
+    def truncate(self, slot: int, new_len: int) -> int:
+        """Roll ``slot`` back to ``new_len`` logical tokens — the
+        speculative-decode rejection path.  Per run: pages that backed ONLY
+        the rejected tail return to the free list; pages still referenced
+        (another slot sharing the prefix, a prefix-cache pin) survive with
+        their references intact, and a page holding both kept and rejected
+        tokens is kept whole (its stale entries past ``new_len`` are masked
+        by position on every read path and overwritten in place by the
+        accepted continuation).  Returns pages freed across runs."""
+        if new_len > self.len_of(slot):
+            raise ValueError(f"truncate: new_len {new_len} > current "
+                             f"{self.len_of(slot)}")
+        before = sum(p.free_pages() for p in self.pools)
+        self.shrink(slot, new_len)
+        return sum(p.free_pages() for p in self.pools) - before
+
+    def rollback_bound(self) -> int:
+        """Highest position (exclusive) through which speculative writes can
+        still be rolled back: a ring (sliding-window) run's entry at ``p %
+        R`` holds live position ``p - R`` once ``p >= R``, which a rejected
+        draft would destroy, so speculation stops at the narrowest ring
+        span.  Position-indexed runs mask stale entries by length: any
+        position the pool can address is rollback-safe."""
+        bounds = [p.capacity for p, run in zip(self.pools, self.plan)
+                  if run.window > 0]
+        return min(bounds) if bounds else self.length_bound
+
     def release(self, slot: int) -> None:
         for p in self.pools:
             p.release(slot)
 
+    # -- external (prefix cache) references ---------------------------------------
+    def retain(self, run: int, page: int) -> None:
+        self.pools[run].retain(page)
+
+    def release_ref(self, run: int, page: int) -> None:
+        self.pools[run].release_ref(page)
+
     # -- device-facing views --------------------------------------------------------
     def block_tables(self, *, rows: Optional[Sequence[int]] = None,
-                     n: int = 0) -> List[torch.Tensor]:
+                     n: int = 0, upto: Optional[int] = None
+                     ) -> List[torch.Tensor]:
         """Per-run ``[n_slots, W_r]`` int32 block tables on the pool's device.
 
         ``rows`` selects a COMPACTED view instead: row i of the returned
         tables is slot ``rows[i]``'s table, padded with all-sentinel rows
         up to ``max(n, len(rows))`` — the engine's bucketed decode batch,
-        whose pad rows' writes drop and reads mask out."""
+        whose pad rows' writes drop and reads mask out.
+
+        ``upto`` keeps only the leading columns that positions below
+        ``upto`` map to (``pages_of(upto)`` per run): a call whose rows
+        read and write no position at or past ``upto`` finds every other
+        column of its rows unallocated, so the narrower table addresses
+        the same pages and gathers ``upto`` tokens of history instead of
+        the pool's whole span."""
         out = []
         for p in self.pools:
             t = p.table
+            if upto is not None:
+                t = t[:, :max(p.pages_of(upto), 1)]
             if rows is not None:
-                t = np.full((max(n, len(rows)), p.table.shape[1]), p.n_pages,
-                            p.table.dtype)
+                full = t
+                t = np.full((max(n, len(rows)), full.shape[1]), p.n_pages,
+                            full.dtype)
                 if rows:
-                    t[:len(rows)] = p.table[list(rows)]
+                    t[:len(rows)] = full[list(rows)]
             out.append(torch.from_numpy(np.array(t, np.int32)).to(
                 self.device))
         return out

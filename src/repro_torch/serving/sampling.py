@@ -4,8 +4,9 @@ Sampling is PER REQUEST: ``SamplingParams`` is the request-level knob set
 (temperature — 0 means greedy — top-k, top-p, seed, token budget and stop
 conditions).  This slice ports the greedy lane: ``torch.argmax``, like
 ``jnp.argmax``, returns the FIRST maximal index, so ties break the same way
-as in the reference.  Stochastic rows (temperature > 0) arrive with ROADMAP
-queue A, item 8.
+as in the reference — for one sampled token (``sample_greedy``) and for a
+speculative verify window (``verify_draft``).  Stochastic rows (temperature
+> 0) and Leviathan rejection sampling arrive with ROADMAP queue A, item 8.
 """
 
 from __future__ import annotations
@@ -67,3 +68,33 @@ def require_greedy(sp: SamplingParams) -> None:
         raise NotImplementedError(
             "stochastic sampling (temperature > 0): later slice "
             "(ROADMAP queue A, item 8)")
+
+
+def verify_draft(logits: torch.Tensor, draft: torch.Tensor,
+                 draft_len: torch.Tensor, *, greedy: bool = True
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy accept over a speculative draft window (the reference's
+    ``verify_draft``, src/repro/serving/sampling.py:145, greedy lane).
+
+    logits:    [N, C, V] target logits at every window position; window
+               inputs are [last_committed, d_1, .., d_K], so position j
+               predicts the token AFTER d_j.
+    draft:     [N, C-1] int32 proposed tokens (padding past a row's
+               draft_len is never read).
+    draft_len: [N] valid draft tokens per row (<= C-1).
+
+    Returns (tokens [N, C] int32, n_emitted [N] int32): row n commits
+    ``tokens[n, :n_emitted[n]]`` — the target's argmax stream up to and
+    including the first position whose argmax disagrees with the draft
+    (the correction), or every draft plus the bonus when all agree."""
+    if not greedy:
+        raise NotImplementedError(
+            "stochastic verification (temperature > 0): later slice "
+            "(ROADMAP queue A, item 8)")
+    K = logits.shape[1] - 1
+    j = torch.arange(K, device=logits.device)
+    within = j[None, :] < draft_len.to(logits.device).long()[:, None]
+    tgt = torch.argmax(logits, dim=-1).to(torch.int32)            # [N, C]
+    match = (tgt[:, :K] == draft.to(torch.int32)) & within
+    acc = torch.cumprod(match.to(torch.int32), dim=-1).sum(dim=-1)
+    return tgt, (acc + 1).to(torch.int32)

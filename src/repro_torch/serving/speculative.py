@@ -1,14 +1,29 @@
-"""Speculative-decoding configuration.
+"""Speculative decoding: the configuration and the model-free drafter
+(port of src/repro/serving/speculative.py, its n-gram branch).
 
-Only the ``SpecConfig`` dataclass is ported so far, so that
-``ServeConfig.speculative`` exists; the drafters and the verify loop arrive
-with ROADMAP queue A, item 7, and the engine raises until then.
+Every decode tick a drafter proposes up to k tokens per decoding request
+and ONE verify window of the target model — a (k+1)-token chunk forward
+over [last_committed, d_1, .., d_k] against the paged pool, logits at
+every window position (``engine._verify_impl``) — accepts the longest
+prefix that agrees with the target's argmax and emits one correction or
+bonus token on top (``sampling.verify_draft``).  Rejected tokens' KV rolls
+back with ``KVPool.truncate``.  Greedy streams are the same with
+speculation on or off; only the number of ticks changes.
+
+``NGramDrafter`` is prompt-lookup decoding: it proposes the continuation
+of the most recent earlier occurrence of the stream's own trailing n-gram.
+No weights, no device work.  The reference's small-model drafter
+(``ModelDrafter``, its own paged pool and draft model) is ROADMAP queue A,
+item 7c: its tests draft with qwen3-1.7b, which the port does not register
+yet, and ``build_drafter`` raises for it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
 
 
 @dataclass(frozen=True)
@@ -51,3 +66,58 @@ class SpecConfig:
         if self.ngram_min < 1 or self.ngram_max < self.ngram_min:
             raise ValueError(f"need 1 <= ngram_min <= ngram_max, got "
                              f"{self.ngram_min}/{self.ngram_max}")
+
+
+class NGramDrafter:
+    """Model-free prompt-lookup drafter.
+
+    Proposes the k tokens that followed the most recent earlier occurrence
+    of the stream's own trailing n-gram (longest n first).  Pure host-side
+    numpy over the committed token stream — no weights, no device work,
+    no state beyond the stream itself, so ``observe``/``release`` are
+    no-ops.  Returns an empty proposal when no n-gram recurs; the engine
+    then falls back to the ordinary one-token decode for that request.
+    """
+
+    def __init__(self, spec: SpecConfig):
+        self.spec = spec
+        self.proposed = 0                       # stats: tokens proposed
+
+    def _propose_one(self, ctx: np.ndarray, k: int) -> np.ndarray:
+        ctx = ctx[..., -self.spec.ngram_search:]
+        T = int(ctx.shape[-1])
+        for n in range(min(self.spec.ngram_max, T - 1),
+                       self.spec.ngram_min - 1, -1):
+            pat = ctx[-n:]
+            # candidate starts i < T - n (the suffix itself is excluded and
+            # at least one continuation token exists)
+            win = np.lib.stride_tricks.sliding_window_view(ctx, n)
+            hits = np.nonzero((win[: T - n] == pat).all(axis=-1))[0]
+            if hits.size:
+                i = int(hits[-1])               # most recent occurrence
+                out = ctx[i + n: i + n + k]
+                self.proposed += int(out.shape[-1])
+                return np.asarray(out, np.int32)
+        return np.zeros((0,), np.int32)
+
+    def propose_batch(self, items: Sequence[Tuple[int, int, np.ndarray]],
+                      k: int) -> Dict[int, np.ndarray]:
+        """items: [(slot, req_id, ctx)] -> {slot: drafts [<=k]}."""
+        return {slot: d for slot, _, ctx in items
+                if (d := self._propose_one(ctx, k)).size}
+
+    def observe(self, slot: int, req_id: int, ctx_len: int) -> None:
+        pass
+
+    def release(self, slot: int) -> None:
+        pass
+
+
+def build_drafter(spec: SpecConfig) -> NGramDrafter:
+    """Drafter factory for the engine: the n-gram drafter.  The reference's
+    model drafter (``drafter="model"``) is ROADMAP queue A, item 7c."""
+    if spec.drafter != "ngram":
+        raise NotImplementedError(
+            "speculative drafter='model' (a draft model with its own paged "
+            "pool): ROADMAP queue A, item 7c")
+    return NGramDrafter(spec)

@@ -16,7 +16,7 @@ The port keeps every ``ServeConfig`` field of the reference; the engine
 raises ``NotImplementedError`` for the options whose slice has not been
 ported yet.  ``Request`` carries only the fields this slice's engine
 sets: the SLO deadline and priority lane come with the async front-end,
-the prefix-cache and host-swap fields with their slices (ROADMAP queue A).
+the host-swap handle with its slice (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -52,6 +52,7 @@ class Request:
     slot: int = -1
     prompt_len: int = 0
     prefill_pos: int = 0                # prompt tokens already in the arena
+    cached_tokens: int = 0              # prefix tokens attached from cache
     n_preempted: int = 0                # pool-exhaustion evictions survived
     t_submit: float = 0.0
     t_first_token: float = 0.0

@@ -78,3 +78,11 @@ def test_guard_covers_the_benchmark_path():
                 "benchmarks/run.py", "benchmarks/kernel_micro.py",
                 "benchmarks/paper_figs.py"):
         assert f"src/repro_torch/{mod}" in names
+
+
+def test_guard_covers_the_prefix_and_speculative_path():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in ("serving/prefix_cache.py", "serving/speculative.py",
+                "serving/sampling.py", "serving/kv_pool.py",
+                "serving/executor.py", "serving/types.py"):
+        assert f"src/repro_torch/{mod}" in names

@@ -174,9 +174,11 @@ def _tiny():
 
 @pytest.mark.parametrize("option", [
     dict(paged=False, packed_prefill=False),
-    dict(paged=True, packed_prefill=False),
-    dict(paged=True, prefix_cache=True),
-    dict(paged=True, speculative=SpecConfig(k=2)),
+    dict(paged=True, speculative=SpecConfig(k=2, drafter="model",
+                                            draft_arch="llama2-7b")),
+    dict(paged=True, prefix_cache=True, host_spill_pages=4),
+    dict(paged=True, speculative=SpecConfig(k=2), greedy=False,
+         temperature=0.7),
     dict(paged=True, host_spill_pages=4),
     dict(paged=True, admission=scheduler.AdmissionConfig()),
     dict(paged=True, greedy=False, temperature=0.7),
