@@ -121,7 +121,42 @@ Phases, one JSON line each:
    says where one more round's time goes under ``torch.profiler`` (device
    busy time, top kernels) and estimates the device's idle share as one
    minus that busy time over the unprofiled rounds' median wall time.
-6. ``serve_prefix_spec`` — the ``serve`` phase's weights and pool with the
+6. ``serve_sampling`` — the ``serve`` phase's weights and pool with
+   per-request sampling (ROADMAP A8): two mixed rounds of ``serve``'s
+   prompts, rows 0 and 2 greedy and rows 1 and 3 at T = 0.8, top_k 50,
+   top_p 0.95 with fixed seeds — the greedy rows must equal ``serve``'s
+   streams token for token, the second round must repeat the first
+   exactly (the first round holds every stochastic draw to its row's kept
+   set, ``KeptCheck``; the second, unchecked, is the timed one), and B1/B2
+   launch 36 x the decode/prefill steps with no
+   plain version called; a ``profile`` line of a 16-token mixed round
+   (beside the same round unprofiled); the sampler alone at V = 151 936
+   (``sampler_alone``: 65 536 draws under those parameters and unfiltered
+   at T = 1, every draw in the CPU's kept set, a chi-square test at the
+   1 - 1e-6 quantile against the filtered softmax, at least 99.9 % equal
+   to the CPU's draws for the same key, and CUDA-event times at [4, V]
+   and [4, 5, V], beside the argmax, the sort and the noise alone); and a
+   stochastic speculative round (n-gram, k = 4; odd rows at those
+   parameters, even rows at T = 0.05 so that the random weights' streams
+   loop and the drafter proposes) whose every emitted token lies in its
+   row's kept set.
+7. ``serve_tier`` — the host KV tier and the disaggregated executor
+   (ROADMAP A9) on the same weights: ``serve``'s traffic on a 184-page
+   pool whose decode growth preempts, with a 256-page pinned host tier —
+   a timed round (each swap's ms and GB/s) and a round that reads every
+   leaf of every swapped page back bit for bit (``SwapProbe``), each with
+   at least two swap-outs and swap-ins and no recompute — and without one
+   (recompute), streams held against an
+   unpressured run up to its first top-2 margin <= ``SPEC_TIE_MARGIN``;
+   the same swap traffic with int8 weights and packed-int4 KV (scale
+   pages swap too; B3 7 x 36 and B4 36 x the decode steps); the prefix
+   cache on a 320-page pool, where a filler round demotes part of a
+   1024-token prefix and a request hitting it promotes it back (every
+   promoted page equal to its demoted bytes, ``TierPageProbe``; a hit of
+   1024 tokens); and ``executor="disaggregated"``: streams equal to
+   ``serve``'s, migrated pages and bytes as the reference's formula
+   gives, one migration batch per tick with a handoff.
+8. ``serve_prefix_spec`` — the ``serve`` phase's weights and pool with the
    prefix cache and n-gram speculative decoding (k = 4): prompts opening
    with one 1024-token prefix (64 pages) and going on with tails of 876,
    333, 37 and 0 tokens, 64 new tokens each.  The cold round publishes
@@ -149,7 +184,7 @@ Phases, one JSON line each:
    (and cache-off), TPOT, windows, acceptance, tokens per window and per
    verify step, COW copies, peak memory and a ``profile`` line (``"of":
    "serve_prefix_spec"``) of a third, warm round.
-7. ``serve_quantized`` — the same model and prompts with int8 weights and
+9. ``serve_quantized`` — the same model and prompts with int8 weights and
    packed-int4 KV pages (HALO's decode datapath), two rounds: the int8 GEMV
    must launch 7 x n_layers times per decode step (wq, wk, wv, wo and the
    three FFN matmuls), the int4 decode kernel n_layers times per decode
@@ -159,7 +194,7 @@ Phases, one JSON line each:
    GEMV's seven calls also timed with the L2 flushed by a read (clean)
    rather than a write (the ``gemv_clean_l2`` line), and a ``profile``
    line (``"of": "serve_quantized"``) follows as for ``serve``.
-8. ``serve_dense`` — qwen3-8b as in ``serve`` on the DENSE arena
+10. ``serve_dense`` — qwen3-8b as in ``serve`` on the DENSE arena
    (``paged=False``, max_len 8192, max_batch 4) with whole-prompt prefill
    (``prefill_chunk=0``): prompts of 8000, 4096, 2304 and 1000 tokens, 64
    new tokens each, two rounds.  Each round, the flash-attention kernel
@@ -174,7 +209,7 @@ Phases, one JSON line each:
    decoding) and B2 (the first packed launch) are re-checked at those
    inputs as in ``serve``.  TTFT per prompt length, TPOT, decode tokens/s,
    peak memory and a ``profile`` line (``"of": "serve_dense"``).
-9. ``serve_ssm`` — mamba2-2.7b at full width and all 64 layers in bf16
+11. ``serve_ssm`` — mamba2-2.7b at full width and all 64 layers in bf16
    (random seeded weights) on the dense arena (max_len 8448, max_batch 4)
    with whole-prompt prefill: after the 24-token warm-up, prompts of 8192,
    4096, 2048 and 200 tokens, 64 new tokens each, two rounds.  Each round
@@ -185,14 +220,19 @@ Phases, one JSON line each:
    tensor-core route's own bound (``ssd_route_cost``).  TTFT per prompt length, TPOT, decode tokens/s, weight and state
    bytes, peak memory, a ``profile`` line for a round and one for a
    prefill-only pass with B7's share of its device time.
-10. ``preempt`` — the same model cut to 4 layers, with a pool small enough
+12. ``preempt`` — the same model cut to 4 layers, with a pool small enough
    to force preemptions; every request must finish.
-11. ``parity``  — reduced llama2-7b and qwen3-8b in f32, one engine on
+13. ``parity``  — reduced llama2-7b and qwen3-8b in f32, one engine on
    ``cuda`` (kernels) and one on ``cpu`` (plain versions), same weights,
    f32 KV (with and without a forced preemption) and int8 KV on the paged
    pool; with the prefix cache (f32 and int8 KV), speculation (k = 4),
    both, and ``packed_prefill=False`` on the paged pool, over prompts
-   sharing a 16-token head; and the dense arena with whole-prompt prefill
+   sharing a 16-token head; a mixed greedy/stochastic batch, a pool that
+   swaps through a host tier, the prefix cache demoting to it and
+   promoting back, and the disaggregated executor (equal counts(), tick
+   logs with swap and migration fields, and the tier's prefix stats; a
+   stochastic row's stream compared up to the CPU run's first near-tie of
+   its Gumbel-perturbed scores); and the dense arena with whole-prompt prefill
    (a 2100-token prompt among short ones) and with packed chunks; reduced
    mamba2-2.7b on the dense arena with whole-prompt prefill: equal tick
    logs (drafted and accepted tokens included) and prefix and spec stats,
@@ -202,7 +242,8 @@ Phases, one JSON line each:
 
 In every serve phase each kernel's plain version must be called 0 times:
 on the card nothing falls back to it.  B5, B2, B3, B8 and B7 count their
-launches by route: ``serve``, ``serve_prefix_spec`` and its int8 round,
+launches by route: ``serve``, ``serve_sampling``, ``serve_tier`` (its int8
+round too), ``serve_prefix_spec`` and its int8 round,
 ``serve_quantized`` (B3 among them), both ``serve_dense`` rounds and
 ``serve_ssm`` (bf16) must launch only their
 tensor-core route, ``parity`` (f32) only the CUDA-core tile, and ``bench``
@@ -261,8 +302,12 @@ DEV = "cuda"              # the card; the input builders allocate here
 FAILED = []               # kernel checks that disagreed (raised per phase)
 
 
+T0 = time.monotonic()      # every line's "t_s": seconds since the start
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": round(time.monotonic() - T0, 1)}), flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -2056,7 +2101,16 @@ def serve_phase(torch, timer, shared):
     require_all_agree("serve")
     profile_phase(torch, eng, prompts[1:],
                   median([r["wall_s"] for r in rounds]))
-    shared.update(cfg=cfg, params=params)
+    # the served prompts' greedy streams (every round serves the same
+    # ones) and the headline numbers, for serve_sampling and serve_tier
+    last = sorted(eng.done, key=lambda r: r.req_id)[-4:]
+    decode_only = [t.wall_s * 1e3 for t in log
+                   if t.decode_reqs and not t.prefill_reqs]
+    shared.update(cfg=cfg, params=params,
+                  streams=[[int(t) for t in r.generated] for r in last],
+                  tpot_ms_median=median([r["tpot_ms_median"]
+                                         for r in rounds]),
+                  decode_tick_ms_median=median(decode_only))
     del eng, probe
     free_device_memory(torch)
     return main
@@ -2638,7 +2692,8 @@ def _leaves(tree):
         yield tree
 
 
-def profile_phase(torch, eng, prompts, round_wall_s, of="serve"):
+def profile_phase(torch, eng, prompts, round_wall_s, of="serve",
+                  sampling=None):
     """Where a serve round's time goes: one more round of the same four
     prompts and 64 new tokens under ``torch.profiler``, device activity
     only.  Reports the profiled wall time, the device's busy time (sum of
@@ -2655,7 +2710,7 @@ def profile_phase(torch, eng, prompts, round_wall_s, of="serve"):
     # device activity only: tracing every CPU op as well slows the eager
     # host loop several-fold more
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        eng.generate(prompts, SamplingParams(max_new_tokens=64))
+        eng.generate(prompts, sampling or SamplingParams(max_new_tokens=64))
         torch.cuda.synchronize()
     wall_ms = (time.monotonic() - t0) * 1e3
 
@@ -2671,7 +2726,7 @@ def profile_phase(torch, eng, prompts, round_wall_s, of="serve"):
     busy_ms = sum(device_us(e) for e in rows) / 1e3
     top = sorted(rows, key=device_us, reverse=True)[:8]
     emit("profile", of=of, prompts=[len(p) for p in prompts],
-         max_new_tokens=64,
+         max_new_tokens=(sampling[0].max_new_tokens if sampling else 64),
          profiled_wall_ms=wall_ms, unprofiled_round_wall_ms=round_wall_s * 1e3,
          device_busy_ms=busy_ms if rows else "not measured",
          device_idle_share_estimate=(1.0 - busy_ms / (round_wall_s * 1e3)
@@ -2717,7 +2772,9 @@ class RecordMargins:
     """For the length of a ``with`` block, record the top-2 logit margin of
     every token a port engine appends, per request: the engine's sampler
     keeps each program's last-position logits (a speculative verify
-    window's ``verify_draft`` keeps every window position's), its single
+    window's ``verify_draft`` keeps every window position's; a mixed
+    tick's ``sample_tokens_rows`` the scores whose argmax each row's draw
+    is, a stochastic row's Gumbel-perturbed filtered logits), its single
     device-to-host transfer point hands each token on with the margin of
     the logits that chose it, and its ``_append_token`` files the margin
     under the request."""
@@ -2730,14 +2787,22 @@ class RecordMargins:
         import numpy as np
         from repro_torch.serving import engine as eng_mod
         torch, eng = self.torch, self.eng
+        from repro_torch.serving.sampling import perturbed_scores
         rows = []
         sample, verify = eng_mod.sample_greedy, eng_mod.verify_draft
+        sample_rows = eng_mod.sample_tokens_rows
         to_host, append = eng._to_host, eng._append_token
-        self._saved = (sample, verify)
+        self._saved = (sample, verify, sample_rows)
 
         def sample_kept(logits):
             rows.append(logits[:, -1].float())
             return sample(logits)
+
+        def sample_rows_kept(logits, *a):
+            # a mixed tick: the scores whose argmax each row's draw is
+            # (a stochastic row's Gumbel-perturbed filtered logits)
+            rows.append(perturbed_scores(logits, *a))
+            return sample_rows(logits, *a)
 
         def verify_kept(logits, *a, **k):
             rows.append(logits.float())
@@ -2762,12 +2827,14 @@ class RecordMargins:
             return append(req, tok)
 
         eng_mod.sample_greedy, eng_mod.verify_draft = sample_kept, verify_kept
+        eng_mod.sample_tokens_rows = sample_rows_kept
         eng._to_host, eng._append_token = host, appended
         return self
 
     def __exit__(self, *exc):
         from repro_torch.serving import engine as eng_mod
-        eng_mod.sample_greedy, eng_mod.verify_draft = self._saved
+        (eng_mod.sample_greedy, eng_mod.verify_draft,
+         eng_mod.sample_tokens_rows) = self._saved
         for attr in ("_to_host", "_append_token"):
             delattr(self.eng, attr)
         return False
@@ -2830,6 +2897,21 @@ def parity_phase(torch):
             dict(speculative=SpecConfig(k=4)),
             dict(prefix_cache=True, speculative=SpecConfig(k=4)),
             dict(packed_prefill=False))]
+        # A8 and A9: a mixed greedy/stochastic batch, a pool that preempts
+        # with a host tier (swap), the prefix cache demoting to it and
+        # promoting back (a cached head, fillers that evict it, the head
+        # again), and the disaggregated executor
+        paged = dict(n_pages=96, page_size=8,
+                     phase=PhaseAwareConfig(prefill_chunk=8, pack_align=8))
+        fill = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+                for n in (30, 28, 26)]
+        cases += [
+            (dict(paged, sampling=[None, dict(SAMPLE_PARAMS, seed=1), None,
+                                   dict(temperature=1.1, seed=2)]), short),
+            (dict(paged, n_pages=12, host_spill_pages=32), short),
+            (dict(pc, n_pages=9, prefix_cache=True, host_spill_pages=16,
+                  max_new=8), [shared[1], *fill, shared[2]]),
+            (dict(paged, executor="disaggregated"), short)]
         for kw, prompts in cases:
             parity_case(torch, name, cfg, params_dev, params_cpu, kw, prompts)
     # reduced mamba2: whole-prompt prefill through B7 (chunks of 32; the
@@ -2863,25 +2945,36 @@ def parity_case(torch, name, cfg, params_dev, params_cpu, kw, prompts):
 
     kw = dict(kw)
     max_new = kw.pop("max_new", 8)
+    per_row = kw.pop("sampling", None) or [None] * len(prompts)
+    sampling = [SamplingParams(max_new_tokens=max_new, **(sp or {}))
+                for sp in per_row]
     runs = []
     for dev, params in ((DEV, params_dev), ("cpu", params_cpu)):
         eng = make_engine(torch, cfg, params, dev, **{"max_batch": 4, **kw})
         with RecordMargins(torch, eng) as rec:
-            reqs = eng.generate(prompts,
-                                SamplingParams(max_new_tokens=max_new))
+            reqs = eng.generate(prompts, sampling)
         runs.append((
             [(t.prefill_reqs, t.decode_reqs, t.preemptions,
-              t.prefill_tokens, t.spec_drafted, t.spec_accepted)
+              t.prefill_tokens, t.spec_drafted, t.spec_accepted,
+              t.migrated_pages, t.migrated_bytes, t.swap_out_bytes,
+              t.swap_in_bytes, t.host_resident_pages)
              for t in eng.tick_log],
             [list(r.generated) for r in reqs], eng.preemptions,
             [rec.margins[r.req_id] for r in reqs],
-            dict(prefix=eng.prefix_stats(), spec=eng.spec_stats())))
+            dict(prefix=eng.prefix_stats(), spec=eng.spec_stats(),
+                 counts=eng.counts(),
+                 tier=eng.prefix.stats() if eng.prefix else None)))
     label = (f"{name} {kw.get('kv_dtype', 'f32')} "
              f"{'paged' if kw.get('paged', True) else 'dense'} "
              f"chunk={kw['phase'].prefill_chunk}"
              + (" prefix-cache" if kw.get("prefix_cache") else "")
              + (" speculative" if kw.get("speculative") else "")
-             + ("" if kw.get("packed_prefill", True) else " padded"))
+             + ("" if kw.get("packed_prefill", True) else " padded")
+             + (" mixed-sampling" if any(per_row) else "")
+             + (f" host-tier={kw['host_spill_pages']}"
+                if kw.get("host_spill_pages") else "")
+             + (" disaggregated" if kw.get("executor") == "disaggregated"
+                else ""))
     compare_parity(label, runs, kw, len(prompts))
 
 
@@ -2916,12 +3009,674 @@ def compare_parity(label, runs, kw, n_prompts):
          logs_equal=log_g == log_c, positions_compared=compared,
          near_tie_flips=flips, hit_tokens=st_g["prefix"]["hit_tokens"],
          spec_windows=st_g["spec"]["windows"],
-         spec_accepted=st_g["spec"]["accepted"])
+         spec_accepted=st_g["spec"]["accepted"],
+         swap_resumes=st_g["counts"]["swap_resumes"],
+         migrated_pages=st_g["counts"]["migrated_pages"],
+         tier=st_g["tier"])
     if kw.get("n_pages") == 12 and pre_g < 1:
         raise AssertionError(f"parity {label}: no preemption forced")
+    c = st_g["counts"]
+    if kw.get("host_spill_pages") and kw.get("prefix_cache"):
+        if not (st_g["tier"]["demoted_blocks"]
+                and st_g["tier"]["promoted_blocks"]):
+            raise AssertionError(f"parity {label}: nothing demoted and "
+                                 f"promoted: {st_g['tier']}")
+    elif kw.get("host_spill_pages") and not c["swap_resumes"]:
+        raise AssertionError(f"parity {label}: no swap: {c}")
+    if kw.get("executor") == "disaggregated" and not c["migrated_pages"]:
+        raise AssertionError(f"parity {label}: nothing migrated")
     if compared < n_prompts:
         raise AssertionError(f"parity {label}: only {compared} positions "
                              "compared")
+
+
+# ---------------------------------------------------------------------------
+# stochastic sampling and the request API (ROADMAP A8), the host KV tier and
+# the disaggregated executor (A9)
+
+SAMPLE_PARAMS = dict(temperature=0.8, top_k=50, top_p=0.95)
+SAMPLER_DRAWS = 65536     # serve_sampling: draws of the sampler alone
+SAMPLER_CHUNK = 256       # rows drawn at once (256 x 151936 per launch)
+SAMPLER_CPU_UNFILTERED = 1024   # unfiltered draws the CPU repeats
+SAMPLER_MATCH = 0.999     # draws that must equal the CPU's for their key
+CHI2_Q = 1 - 1e-6         # chi-square bound: the statistic's quantile
+TIER_PAGES = 184          # serve_tier: the pressured pool (pages of 16)
+TIER_HOST_PAGES = 256     # serve_tier: host pages (0.6 GB pinned)
+TIER_PREFIX_PAGES = 320   # serve_tier: the demote/promote round's pool
+
+
+def mixed_sampling(n, seed0=100, **stochastic):
+    """Greedy even rows, stochastic odd rows (fixed seeds), 64 new
+    tokens."""
+    from repro_torch.serving.sampling import SamplingParams
+    params = stochastic or SAMPLE_PARAMS
+    return [SamplingParams(max_new_tokens=64) if i % 2 == 0 else
+            SamplingParams(max_new_tokens=64, seed=seed0 + i, **params)
+            for i in range(n)]
+
+
+def counted_round(torch, eng, prompts, sampling, n_layers, keep=None):
+    """One counted round: every kernel's count and route count set to 0,
+    ``prompts`` served under the probe, then the checks every round
+    passes — each request finished its 64 tokens, no NaN logit, no plain
+    version called, and (without speculation) one decode step in each
+    tick that decoded."""
+    fns = kernel_functions()
+    for fn in fns.values():
+        fn.launches = 0
+    reset_routes()
+    n0 = eng.n_ticks
+    with MainPathProbe(torch, n_layers, eng, keep=keep) as probe:
+        t0 = time.monotonic()
+        reqs = eng.generate(prompts, sampling)
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in fns.items()}
+    probe.routes = route_counts()
+    log = list(eng.tick_log)[-(eng.n_ticks - n0):]
+    if any(r.state.value != "done" or len(r.generated) != 64 for r in reqs):
+        raise AssertionError("not every request finished its 64 tokens")
+    if bool(probe.nan):
+        raise AssertionError("a logit was NaN")
+    if probe.plain_calls:
+        raise AssertionError(f"plain versions called on the card: "
+                             f"{probe.plain_calls}")
+    if eng.spec is None and probe.steps["decode"] != sum(
+            bool(t.decode_reqs) for t in log):
+        raise AssertionError("decode steps != ticks that decoded")
+    decode_only = [t.wall_s * 1e3 for t in log
+                   if t.decode_reqs and not t.prefill_reqs]
+    return dict(reqs=reqs, probe=probe, launches=launches, log=log,
+                streams=[[int(t) for t in r.generated] for r in reqs],
+                row=dict(wall_s=wall_s, ticks=len(log),
+                         prefill_steps=probe.steps["prefill"],
+                         decode_steps=probe.steps["decode"],
+                         ttft_ms=[r.ttft * 1e3 for r in reqs],
+                         tpot_ms=[r.tpot * 1e3 for r in reqs],
+                         ttft_ms_median=median([r.ttft * 1e3 for r in reqs]),
+                         tpot_ms_median=median([r.tpot * 1e3 for r in reqs]),
+                         decode_tick_ms_median=(median(decode_only)
+                                                if decode_only else None),
+                         launches=launches, routes=probe.routes))
+
+
+def require_paged_launches(phase, rnd, n_layers, quantized=False):
+    """B2 n_layers x the prefill steps; B1 (or, int8 weights and int4 KV,
+    B4 and seven B3 calls a layer) n_layers x the decode steps; nothing
+    else; every launch on the tensor cores."""
+    s, L, lc = rnd["probe"].steps, n_layers, rnd["launches"]
+    expect = {"packed_prefill_attention": L * s["prefill"],
+              "matmul": 0, "flash_attention": 0, "decode_attention": 0,
+              "ssd_chunk": 0}
+    if quantized:
+        expect.update(gemv=MainPathProbe.GEMV_PER_LAYER * L * (
+            s["decode"] + s["verify"]),
+            paged_decode_attention_q4=L * s["decode"],
+            paged_decode_attention=0)
+    else:
+        expect.update(paged_decode_attention=L * s["decode"], gemv=0,
+                      paged_decode_attention_q4=0)
+    for name, n in expect.items():
+        if lc[name] != n:
+            raise AssertionError(f"{phase}: {name} launched {lc[name]} "
+                                 f"times, expected {n}")
+    require_routes(phase, rnd["probe"].routes, lc, "wgmma")
+
+
+class KeptCheck:
+    """For the length of a ``with`` block, hold every stochastic draw of
+    the engine's sampler to its row's kept set: ``sample_tokens_rows``'
+    token and each token a ``verify_draft_rows`` window emits must lie in
+    the top-k / top-p set of the logits that chose it (one device flag,
+    read at the end)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.bad = torch.zeros((), dtype=torch.bool, device=DEV)
+        self.calls = {"sample": 0, "verify": 0}
+
+    def __enter__(self):
+        from repro_torch.serving import engine as eng_mod
+        from repro_torch.serving import sampling as S
+        torch = self.torch
+        self._saved = (eng_mod.sample_tokens_rows, eng_mod.verify_draft_rows)
+        sample_rows, verify_rows = self._saved
+
+        def kept(logits, t, k, p):
+            lead = (t.shape[0],) + (1,) * (logits.ndim - 1)
+            return S._filter_logits_rows(
+                logits.float() / t.clamp(min=1e-6).reshape(lead),
+                k.reshape(lead), p.reshape(lead)) > S.NEG_INF / 2
+
+        def sample(logits, t, k, p, keys):
+            out = sample_rows(logits, t, k, p, keys)
+            ok = kept(logits, t, k, p).gather(-1, out.long()[:, None])[:, 0]
+            self.bad |= ~(ok | (t <= 0)).all()
+            self.calls["sample"] += 1
+            return out
+
+        def verify(logits, draft, dlen, t, k, p, keys):
+            toks, n = verify_rows(logits, draft, dlen, t, k, p, keys)
+            ok = kept(logits, t, k, p).gather(-1, toks.long()[..., None])[
+                ..., 0]
+            live = (torch.arange(toks.shape[1], device=toks.device)[None]
+                    < n[:, None])
+            self.bad |= ~(ok | ~live | (t <= 0)[:, None]).all()
+            self.calls["verify"] += 1
+            return toks, n
+
+        eng_mod.sample_tokens_rows, eng_mod.verify_draft_rows = sample, verify
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving import engine as eng_mod
+        eng_mod.sample_tokens_rows, eng_mod.verify_draft_rows = self._saved
+        return False
+
+
+def chi2_binned(counts, probs, min_expected=20.0):
+    """Chi-square statistic and its CHI2_Q bound over categories grouped,
+    most probable first, into bins expecting at least ``min_expected``
+    draws (the last bin takes the remainder)."""
+    import numpy as np
+    from scipy.stats import chi2
+    n = counts.sum()
+    order = np.argsort(-probs, kind="stable")
+    bins_c, bins_p, c_acc, p_acc = [], [], 0.0, 0.0
+    for i in order:
+        if probs[i] <= 0:
+            continue
+        c_acc += counts[i]
+        p_acc += probs[i]
+        if p_acc * n >= min_expected:
+            bins_c.append(c_acc)
+            bins_p.append(p_acc)
+            c_acc = p_acc = 0.0
+    if p_acc > 0:
+        bins_c[-1] += c_acc
+        bins_p[-1] += p_acc
+    c, e = np.array(bins_c), np.array(bins_p) * n
+    return float(((c - e) ** 2 / e).sum()), float(chi2.ppf(CHI2_Q,
+                                                           len(c) - 1)), len(c)
+
+
+def sampler_alone(torch, timer, V):
+    """The sampler at qwen3-8b's vocabulary: one seeded logits row,
+    SAMPLER_DRAWS draws keyed by one seed and counters 0..N-1, once under
+    SAMPLE_PARAMS and once unfiltered at T = 1.0.  Every draw lies in the
+    kept set the plain filter computes on the CPU; the counts pass a
+    chi-square test (CHI2_Q) against the filtered softmax in float64; and
+    at least SAMPLER_MATCH of the draws equal the CPU's for the same key —
+    all of them under the filter (the CPU scores only the kept entries,
+    whose noise is the same function of the key), the first
+    SAMPLER_CPU_UNFILTERED unfiltered.  Then the sampler's CUDA-event time
+    at a decode tick's [4, V] and a verify window's [4, 5, V] (bf16
+    logits, two greedy and two stochastic rows), beside the argmax alone."""
+    import numpy as np
+    from repro_torch.serving import sampling as S
+
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    row = torch.randn(V, generator=gen, device=DEV) * 2.0
+    row_cpu = row.cpu()
+    seed = 77
+    out = {}
+    for label, (t, k, p) in (("filtered", (0.8, 50, 0.95)),
+                             ("unfiltered", (1.0, 0, 0.0))):
+        draws = []
+        t0 = time.monotonic()
+        for c0 in range(0, SAMPLER_DRAWS, SAMPLER_CHUNK):
+            n = min(SAMPLER_CHUNK, SAMPLER_DRAWS - c0)
+            keys = S.row_keys(torch.full((n,), seed, device=DEV),
+                              torch.arange(c0, c0 + n, device=DEV))
+            draws.append(S.sample_tokens_rows(
+                row.expand(n, V), torch.full((n,), t, device=DEV),
+                torch.full((n,), k, device=DEV),
+                torch.full((n,), p, device=DEV), keys))
+        draws = torch.cat(draws).cpu().numpy()
+        draw_s = time.monotonic() - t0
+        filt = S._filter_logits(row_cpu[None] / t, k, p)[0]
+        kept = (filt > S.NEG_INF / 2).numpy()
+        z = row_cpu.double().numpy() / t
+        e = np.where(kept, np.exp(z - z[kept].max()), 0.0)
+        probs = e / e.sum()
+        counts = np.bincount(draws, minlength=V).astype(np.float64)
+        stat, bound, bins = chi2_binned(counts, probs)
+        # the CPU's draws for the same keys
+        idx = torch.nonzero(torch.from_numpy(kept))[:, 0]
+        n_cmp = SAMPLER_DRAWS if len(idx) < V else SAMPLER_CPU_UNFILTERED
+        cpu = []
+        for c0 in range(0, n_cmp, 64):
+            n = min(64, n_cmp - c0)
+            keys = S.row_keys(torch.full((n,), seed),
+                              torch.arange(c0, c0 + n))
+            g = S.gumbel(keys, S.STREAM_SAMPLE, (V,), idx)
+            cpu.append(idx[torch.argmax(filt[idx][None] + g, dim=-1)])
+        cpu = torch.cat(cpu).numpy()
+        match = float((cpu == draws[:n_cmp]).mean())
+        out[label] = dict(temperature=t, top_k=k, top_p=p,
+                          kept=int(kept.sum()), draws=SAMPLER_DRAWS,
+                          draw_s=draw_s, in_kept=bool(kept[draws].all()),
+                          chi2=stat, chi2_bound=bound, chi2_bins=bins,
+                          cpu_compared=n_cmp, cpu_match=match)
+        if not kept[draws].all():
+            raise AssertionError(f"sampler {label}: a draw outside the "
+                                 "kept set")
+        if not stat < bound:
+            raise AssertionError(f"sampler {label}: chi-square {stat} >= "
+                                 f"{bound}")
+        if match < SAMPLER_MATCH:
+            raise AssertionError(f"sampler {label}: {match} of the draws "
+                                 "equal the CPU's")
+    # times at a decode tick's and a verify window's shapes
+    lg = (torch.randn(4, 5, V, generator=gen, device=DEV) * 2.0).to(
+        torch.bfloat16)
+    temps = torch.tensor([0.0, 0.8, 0.0, 0.8], device=DEV)
+    ks = torch.tensor([0, 50, 0, 50], device=DEV)
+    ps = torch.tensor([0.0, 0.95, 0.0, 0.95], device=DEV)
+    keys = S.row_keys(torch.arange(4, device=DEV),
+                      torch.arange(4, device=DEV))
+    draft = torch.randint(0, V, (4, 4), generator=gen, device=DEV)
+    dlen = torch.full((4,), 4, device=DEV)
+    out["ms"] = dict(
+        sample_rows_4xV=timer(lambda: S.sample_tokens_rows(
+            lg[:, 0], temps, ks, ps, keys)),
+        argmax_4xV=timer(lambda: S.sample_greedy(lg[:, :1])),
+        verify_rows_4x5xV=timer(lambda: S.verify_draft_rows(
+            lg, draft, dlen, temps, ks, ps, keys)),
+        verify_greedy_4x5xV=timer(lambda: S.verify_draft(lg, draft, dlen)),
+        sort_4xV=timer(lambda: torch.sort(lg[:, 0].float(), dim=-1,
+                                          descending=True, stable=True)),
+        gumbel_4xV=timer(lambda: S.gumbel(keys, S.STREAM_SAMPLE, (V,))))
+    return out
+
+
+def serve_sampling_phase(torch, timer, shared):
+    """``serve``'s weights and pool with per-request sampling: a mixed
+    round (rows 0 and 2 greedy, rows 1 and 3 at SAMPLE_PARAMS with fixed
+    seeds) whose greedy rows must equal ``serve``'s streams token for
+    token, the same round again whose stochastic streams must repeat
+    exactly, the sampler alone at V = 151936 (``sampler_alone``), and a
+    stochastic speculative round (n-gram, k = 4) whose every emitted token
+    lies in its row's kept set.  The speculative round's even rows sample
+    at T = 0.05: random weights' near-greedy streams loop as their greedy
+    ones do, so the drafter proposes and the stochastic verify runs."""
+    from repro_torch.serving.speculative import SpecConfig
+
+    cfg, params = shared["cfg"], shared["params"]
+    L = cfg.n_layers
+    prompts = serve_prompts(cfg)
+    eng = make_engine(torch, cfg, params, DEV, max_batch=4,
+                      page_size=PAGE, n_pages=1024)
+    eng.generate([prompts[0]], mixed_sampling(1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sampling = mixed_sampling(4)
+    rounds = []
+    for check in (True, False):     # the second round, unchecked, is timed
+        kc = KeptCheck(torch)
+        if check:
+            kc.__enter__()
+        try:
+            rnd = counted_round(torch, eng, prompts[1:], sampling, L)
+        finally:
+            if check:
+                kc.__exit__()
+        require_paged_launches("serve_sampling", rnd, L)
+        if check and (bool(kc.bad) or not kc.calls["sample"]):
+            raise AssertionError(f"serve_sampling: kept-set check "
+                                 f"{bool(kc.bad)}, calls {kc.calls}")
+        rounds.append(rnd)
+    streams = [r["streams"] for r in rounds]
+    greedy_equal = all(streams[0][i] == shared["streams"][i] for i in (0, 2))
+    repeat = streams[0] == streams[1]
+    if not greedy_equal or not repeat:
+        raise AssertionError(f"serve_sampling: greedy rows equal to serve "
+                             f"{greedy_equal}, rounds repeat {repeat}")
+    # the profile: a 16-token mixed round (a 64-token one's trace takes a
+    # minute to read back), beside the same round unprofiled
+    short = [dataclasses.replace(sp, max_new_tokens=16) for sp in sampling]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    eng.generate(prompts[1:], short)
+    torch.cuda.synchronize()
+    profile_phase(torch, eng, prompts[1:], time.monotonic() - t0,
+                  of="serve_sampling", sampling=short)
+    sampler = sampler_alone(torch, timer, cfg.vocab_size)
+    del eng
+    free_device_memory(torch)
+
+    spec = make_engine(torch, cfg, params, DEV, max_batch=4, page_size=PAGE,
+                       n_pages=1024, speculative=SpecConfig(k=SPEC_K))
+    spec.generate([prompts[0]], mixed_sampling(1))
+    near = dict(temperature=0.05, top_k=50, top_p=0.95)
+    spec_sampling = [s if s.temperature > 0 else
+                     type(s)(max_new_tokens=64, seed=200 + i, **near)
+                     for i, s in enumerate(mixed_sampling(4))]
+    w0 = spec.spec_windows
+    with KeptCheck(torch) as kc:
+        srnd = counted_round(torch, spec, prompts[1:], spec_sampling, L)
+    require_paged_launches("serve_sampling spec", srnd, L)
+    if bool(kc.bad) or not kc.calls["verify"]:
+        raise AssertionError(f"serve_sampling spec: kept-set check "
+                             f"{bool(kc.bad)}, calls {kc.calls}")
+    log = srnd["log"]
+    drafted = sum(t.spec_drafted for t in log)
+    accepted = sum(t.spec_accepted for t in log)
+    emit("serve_sampling", model=cfg.name, n_layers=L, dtype=cfg.dtype,
+         sampling=SAMPLE_PARAMS, rows="0, 2 greedy; 1, 3 stochastic",
+         rounds=[r["row"] for r in rounds], greedy_rows_equal_serve=True,
+         stochastic_rows_repeat=True,
+         serve=dict(tpot_ms_median=shared["tpot_ms_median"],
+                    decode_tick_ms_median=shared["decode_tick_ms_median"]),
+         sampler=sampler,
+         spec=dict(srnd["row"], k=SPEC_K, windows=spec.spec_windows - w0,
+                   drafted=drafted, accepted=accepted,
+                   verify_steps=srnd["probe"].steps["verify"],
+                   stochastic_verify_calls=kc.calls["verify"],
+                   even_rows=near, odd_rows=SAMPLE_PARAMS),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if not drafted:
+        raise AssertionError("serve_sampling spec: nothing drafted")
+    del spec
+    free_device_memory(torch)
+
+
+class SwapProbe:
+    """For the length of a ``with`` block, time every swap of ``eng``
+    (device synchronized before and after; swap-out syncs itself) with
+    its bytes, and with ``read`` read the victim's pages (every leaf)
+    before its swap-out and its new pages after its swap-in: they must be
+    equal bit for bit.  The page reads are outside the timed spans, but
+    inside the round's ticks: a round timed for TTFT and TPOT runs without
+    them."""
+
+    def __init__(self, torch, eng, read=True):
+        self.torch, self.eng, self.read = torch, eng, read
+        self.swaps, self.pages, self.compared, self.equal = [], {}, 0, True
+
+    def _read(self, slot, n_pages):
+        eng = self.eng
+        if not self.read:
+            return None
+        return [[eng._read_page(r, int(q)) for q in p.table[slot, :n]]
+                for r, (p, n) in enumerate(zip(eng.pool.pools, n_pages))]
+
+    def __enter__(self):
+        torch, eng = self.torch, self.eng
+        self._saved = (eng._swap_out, eng._try_swap_in)
+        swap_out, swap_in = self._saved
+        tier = eng.host_tier
+
+        def out(req):
+            n = [p.pages_of(eng.pool.len_of(req.slot))
+                 for p in eng.pool.pools]
+            before = self._read(req.slot, n)
+            torch.cuda.synchronize()
+            b0, t0 = tier.swap_out_bytes, time.perf_counter()
+            ok = swap_out(req)
+            ms = (time.perf_counter() - t0) * 1e3
+            if ok:
+                self.pages[req.req_id] = (n, before)
+                nb = tier.swap_out_bytes - b0
+                self.swaps.append(dict(dir="out", req=req.req_id,
+                                       pages=sum(n), bytes=nb, ms=ms,
+                                       gb_s=nb / ms / 1e6))
+            return ok
+
+        def back(req, slot):
+            torch.cuda.synchronize()
+            b0, t0 = tier.swap_in_bytes, time.perf_counter()
+            ok = swap_in(req, slot)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if ok:
+                nb = tier.swap_in_bytes - b0
+                n, before = self.pages.pop(req.req_id)
+                self.swaps.append(dict(dir="in", req=req.req_id,
+                                       pages=sum(n), bytes=nb, ms=ms,
+                                       gb_s=nb / ms / 1e6))
+                after = self._read(slot, n)
+                for a_run, b_run in zip(after or (), before or ()):
+                    for a, b in zip(a_run, b_run):
+                        for leaf in b:
+                            self.equal &= bool(torch.equal(a[leaf], b[leaf]))
+                            self.compared += 1
+            return ok
+
+        eng._swap_out, eng._try_swap_in = out, back
+        return self
+
+    def __exit__(self, *exc):
+        for attr in ("_swap_out", "_try_swap_in"):
+            delattr(self.eng, attr)
+        return False
+
+
+class TierPageProbe:
+    """For the length of a ``with`` block, read each block the prefix
+    cache demotes (every leaf of its device page, per run) keyed by the
+    host page it goes to, and the fresh device page each promotion fills
+    from that host page: they must be equal bit for bit."""
+
+    def __init__(self, torch, eng):
+        self.torch, self.eng = torch, eng
+        self.saved, self.compared, self.equal = {}, 0, True
+
+    def __enter__(self):
+        torch, eng = self.torch, self.eng
+        self._orig = (eng._demote_pages, eng._promote_pages)
+        demote, promote = self._orig
+
+        def dem(dev_pages):
+            pages = [eng._read_page(r, int(q)) for r, q in enumerate(dev_pages)]
+            host = demote(dev_pages)
+            if host is not None:
+                for r, hp in enumerate(host):
+                    self.saved[(r, hp)] = pages[r]
+            return host
+
+        def pro(host_pages):
+            dev = promote(host_pages)
+            if dev is not None:
+                for r, (hp, q) in enumerate(zip(host_pages, dev)):
+                    want = self.saved.pop((r, hp))
+                    got = eng._read_page(r, int(q))
+                    for leaf in want:
+                        self.equal &= bool(torch.equal(got[leaf], want[leaf]))
+                        self.compared += 1
+            return dev
+
+        eng._demote_pages, eng._promote_pages = dem, pro
+        eng.prefix._demote, eng.prefix._promote = dem, pro
+        return self
+
+    def __exit__(self, *exc):
+        eng = self.eng
+        for attr in ("_demote_pages", "_promote_pages"):
+            delattr(eng, attr)
+        eng.prefix._demote, eng.prefix._promote = (eng._demote_pages,
+                                                   eng._promote_pages)
+        return False
+
+
+def tier_prefix_prompts(cfg):
+    """The demote/promote traffic: a 1024-token head with a 37-token tail
+    (publishes 66 blocks), four 1000-token fillers (evict part of it to
+    the host tier), then the head with a new 37-token tail (hits it again,
+    promoting the demoted blocks).  The hit is one request: prefill plans
+    against free pages only, so after the fillers (whose published pages
+    fill the pool) a larger round would gain one reclaimed page a tick
+    (ROADMAP queue C)."""
+    import numpy as np
+    rng = np.random.default_rng(8)
+    head = rng.integers(0, cfg.vocab_size, PREFIX_LEN, dtype=np.int32)
+    tail = lambda n: rng.integers(0, cfg.vocab_size, n,       # noqa: E731
+                                  dtype=np.int32)
+    return ([np.concatenate([head, tail(37)])],
+            [tail(1000) for _ in range(4)],
+            [np.concatenate([head, tail(37)])])
+
+
+def serve_tier_phase(torch, timer, shared):
+    """``serve``'s weights with the host KV tier and the disaggregated
+    executor: (1) ``serve``'s traffic on a TIER_PAGES-page pool whose
+    decode growth preempts, with a TIER_HOST_PAGES-page pinned host tier
+    (swap) and without one (recompute), beside an unpressured pool: every
+    request finishes, >= 2 swap-outs and swap-ins and no recompute with
+    the tier in each of two rounds (one timed, one reading every swapped
+    leaf back, which must be equal bit for bit), streams equal to the
+    unpressured run up to its first top-2 margin <= SPEC_TIE_MARGIN (the
+    decode walk's split follows the batch, which preemption changes);
+    (2) the same swap traffic with int8 weights and packed-int4 KV (scale
+    pages swap too; B4 and B3 on restored pages); (3) the prefix cache
+    over a TIER_PREFIX_PAGES-page pool: a cold round, a filler round that
+    demotes part of the prefix, a request that promotes it back (every
+    promoted page equal to its demoted bytes; a 1024-token hit); (4) ``serve``'s traffic with
+    ``executor="disaggregated"``: streams equal to ``serve``'s, migrated
+    pages and bytes as the reference's formula gives, one migration batch
+    per tick with a handoff."""
+    from repro_torch.serving.sampling import SamplingParams
+
+    cfg, params = shared["cfg"], shared["params"]
+    L = cfg.n_layers
+    prompts = serve_prompts(cfg)
+    two = SamplingParams(max_new_tokens=2)
+    sp = [SamplingParams(max_new_tokens=64)] * 4
+
+    base = make_engine(torch, cfg, params, DEV, max_batch=4, page_size=PAGE,
+                       n_pages=1024)
+    base.generate([prompts[0]], two)
+    with RecordMargins(torch, base) as rec:
+        t0 = time.monotonic()
+        reqs = base.generate(prompts[1:], sp)
+        torch.cuda.synchronize()
+        base_wall = time.monotonic() - t0
+    base_streams = [[int(t) for t in r.generated] for r in reqs]
+    base_margins = [rec.margins[r.req_id] for r in reqs]
+    base_row = dict(wall_s=base_wall,
+                    ttft_ms_median=median([r.ttft * 1e3 for r in reqs]),
+                    tpot_ms_median=median([r.tpot * 1e3 for r in reqs]))
+    del base, rec, reqs
+    free_device_memory(torch)
+    out = dict(unpressured=base_row)
+
+    def pressured(label, quantized=False, spill=TIER_HOST_PAGES):
+        """One round timed (swaps timed, no page reads), then, with the
+        tier, one round with every swapped page read back."""
+        kw = dict(weights_dtype="int8", kv_dtype="int4") if quantized else {}
+        eng = make_engine(torch, cfg, params, DEV, max_batch=4,
+                          page_size=PAGE, n_pages=TIER_PAGES,
+                          host_spill_pages=spill, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        eng.generate([prompts[0]], two)
+        torch.cuda.reset_peak_memory_stats()
+        probes, rnds = [], []
+        for read in ((False, True) if spill else (False,)):
+            probe = SwapProbe(torch, eng, read=read) if spill else None
+            if probe:
+                probe.__enter__()
+            c0 = eng.counts()
+            try:
+                rnd = counted_round(torch, eng, prompts[1:], sp, L)
+            finally:
+                if probe:
+                    probe.__exit__()
+            require_paged_launches(f"serve_tier {label}", rnd, L, quantized)
+            rnd["counts"] = {k: v - c0[k] for k, v in eng.counts().items()}
+            probes.append(probe)
+            rnds.append(rnd)
+        rnd, c = rnds[0], rnds[0]["counts"]
+        row = dict(rnd["row"], n_pages=TIER_PAGES, host_spill_pages=spill,
+                   preemptions=sum(t.preemptions for t in rnd["log"]),
+                   counts=c, peak_mem_gb=torch.cuda.max_memory_allocated()
+                   / 1e9)
+        if spill:
+            timed, read = probes
+            row.update(pinned=eng.host_tier.pinned,
+                       pinned_bytes=eng.host_tier.host_bytes(),
+                       swaps=timed.swaps, leaves_compared=read.compared,
+                       pages_equal=read.equal,
+                       leaves=sorted(eng.cache[0]))
+            for r in rnds:
+                rc = r["counts"]
+                if rc["swap_resumes"] < 2 or rc["recompute_preemptions"]:
+                    raise AssertionError(f"serve_tier {label}: {rc}")
+            if (not read.equal or not read.compared
+                    or eng.host_tier.pinned != (DEV == "cuda")):
+                raise AssertionError(f"serve_tier {label}: pages equal "
+                                     f"{read.equal} over {read.compared} "
+                                     "leaves")
+        elif c["recompute_preemptions"] < 1:
+            raise AssertionError(f"serve_tier {label}: nothing preempted")
+        if not quantized:
+            row["baseline"] = compare_to_baseline(
+                f"serve_tier {label}", rnd["streams"], base_streams,
+                base_margins)
+        del eng, rnd, rnds
+        free_device_memory(torch)
+        return row
+
+    out["swap"] = pressured("swap")
+    out["recompute"] = pressured("recompute", spill=0)
+    out["swap_int8_int4"] = pressured("swap int8/int4", quantized=True)
+
+    # (3) prefix demote and promote
+    cold, fill, warm = tier_prefix_prompts(cfg)
+    eng = make_engine(torch, cfg, params, DEV, max_batch=4, page_size=PAGE,
+                      n_pages=TIER_PREFIX_PAGES, prefix_cache=True,
+                      host_spill_pages=TIER_HOST_PAGES)
+    eng.generate([prompts[0]], two)
+    rows = {}
+    with TierPageProbe(torch, eng) as tp:
+        for label, ps in (("cold", cold), ("fill", fill), ("warm", warm)):
+            rnd = counted_round(torch, eng, ps, [sp[0]] * len(ps), L)
+            require_paged_launches(f"serve_tier prefix {label}", rnd, L)
+            rows[label] = dict(rnd["row"], prefix=eng.prefix.stats(),
+                               cached_tokens=[r.cached_tokens
+                                              for r in rnd["reqs"]])
+    st = eng.prefix.stats()
+    out["prefix"] = dict(n_pages=TIER_PREFIX_PAGES, rounds=rows,
+                         demoted_blocks=st["demoted_blocks"],
+                         promoted_blocks=st["promoted_blocks"],
+                         leaves_compared=tp.compared, pages_equal=tp.equal,
+                         warm_ttft_ms_median=rows["warm"]["ttft_ms_median"])
+    if (not st["demoted_blocks"] or not st["promoted_blocks"]
+            or not tp.equal or not tp.compared
+            or rows["warm"]["cached_tokens"] != [PREFIX_LEN]):
+        raise AssertionError(f"serve_tier prefix: {out['prefix']}")
+    del eng, rnd
+    free_device_memory(torch)
+
+    # (4) disaggregated
+    eng = make_engine(torch, cfg, params, DEV, max_batch=4, page_size=PAGE,
+                      n_pages=1024, executor="disaggregated")
+    eng.generate([prompts[0]], two)
+    m0 = eng.counts()
+    b0 = eng.executor.migration_batches
+    rnd = counted_round(torch, eng, prompts[1:], sp, L)
+    require_paged_launches("serve_tier disaggregated", rnd, L)
+    c = eng.counts()
+    want_pages = want_bytes = 0
+    for r in rnd["reqs"]:
+        for i, p in enumerate(eng.pool.pools):
+            n = max(p.pages_of(r.prompt_len) - p.pages_of(r.cached_tokens), 0)
+            want_pages += n
+            want_bytes += n * eng.pool.page_bytes(i)
+    got = (c["migrated_pages"] - m0["migrated_pages"],
+           c["migrated_bytes"] - m0["migrated_bytes"])
+    batches = eng.executor.migration_batches - b0
+    out["disaggregated"] = dict(
+        rnd["row"], migrated_pages=got[0], migrated_bytes=got[1],
+        migration_batches=batches, devices=eng.executor.stats(),
+        streams_equal_colocated=rnd["streams"] == shared["streams"])
+    if (rnd["streams"] != shared["streams"] or got != (want_pages, want_bytes)
+            or batches != sum(t.migrated_bytes > 0 for t in rnd["log"])):
+        raise AssertionError(f"serve_tier disaggregated: {out['disaggregated']}"
+                             f", expected {want_pages} pages, {want_bytes} B")
+    del eng, rnd
+    free_device_memory(torch)
+    emit("serve_tier", model=cfg.name, n_layers=L, dtype=cfg.dtype, **out)
 
 
 def _to_device(tree, device):
@@ -2999,6 +3754,11 @@ def main() -> int:
     main_bench = run("bench", bench_phase, torch, timer)
     shared = {}
     main_path = run("serve", serve_phase, torch, timer, shared)
+    if "streams" in shared:
+        run("serve_sampling", serve_sampling_phase, torch, timer, shared)
+        run("serve_tier", serve_tier_phase, torch, timer, shared)
+    else:
+        failed += ["serve_sampling", "serve_tier"]
     run("serve_prefix_spec", serve_prefix_spec_phase, torch, timer, shared)
     shared.clear()
     main_quantized = run("serve_quantized", serve_quantized_phase, torch,

@@ -1,4 +1,4 @@
-"""Serving CLI of the PyTorch port: batched greedy requests through the
+"""Serving CLI of the PyTorch port: batched requests through the
 packed-prefill engine over the paged pool or the dense arena (port of the
 main path of src/repro/launch/serve.py).
 
@@ -40,8 +40,26 @@ report then adds the cache's hit rate and the drafter's acceptance.
       --requests 4 --prompt-len 1400 --shared-prefix 1024 --max-new 64 \
       --n-pages 1024 --prefix-cache --speculative --spec-k 4
 
-``--stop-token ID`` (repeatable) ends a request when it emits that token
-(finish reason ``stop``).
+Sampling is PER REQUEST (``SamplingParams``): ``--temperature 0`` IS
+greedy, and ``--temperature``, ``--top-k``, ``--top-p`` and ``--stop-token
+ID`` (repeatable; finish reason ``stop``) apply to every request, request i
+drawing with seed ``--seed`` + i.  ``--mixed-sampling`` keeps even-indexed
+requests greedy while odd-indexed ones sample at ``--temperature``: a mixed
+batch runs in ONE program per tick.
+
+``--host-spill-pages N`` (paged pool only) puts a host-memory KV tier of N
+pages per run behind the pool (pinned memory on the card): a preempted
+request's pages swap out and back in instead of being recomputed, and with
+``--prefix-cache`` evicted prefix blocks demote to it and promote back on a
+hit.  ``--executor disaggregated`` pins prefill programs and decode
+programs to separate device groups (one card serves both) and reports the
+KV pages and bytes each prefill -> decode handoff moves across the 2.5D
+link.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
+      --requests 4 --prompt-len 1900 --max-new 64 --n-pages 192 \
+      --host-spill-pages 256 --temperature 0.8 --top-k 50 --top-p 0.95 \
+      --mixed-sampling --executor disaggregated
 
 Weights are random, drawn from ``--seed`` on the device (no checkpoint is
 read).  ``--reduced`` runs the family's tiny f32 config.  The engine runs on
@@ -107,11 +125,31 @@ def main(argv=None) -> int:
                          "over the paged pool (paged only)")
     ap.add_argument("--spec-k", type=int, default=None,
                     help="draft tokens per verify window (default 4)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 = greedy; > 0 samples on the device "
+                         "(per-request SamplingParams)")
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--top-p", type=float, default=0.0,
+                    help="nucleus sampling threshold (0 = off)")
+    ap.add_argument("--mixed-sampling", action="store_true",
+                    help="odd-indexed requests sample at --temperature, "
+                         "even-indexed ones stay greedy (one program per "
+                         "tick serves both)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stop-token", type=int, action="append", default=[],
                     metavar="ID",
                     help="extra stop-token id (repeatable; finish reason "
                          "'stop')")
+    ap.add_argument("--executor", default="colocated",
+                    choices=["colocated", "disaggregated"],
+                    help="disaggregated: prefill/decode programs pinned to "
+                         "separate device groups, KV migrates at the "
+                         "prefill->decode handoff (HALO's 2.5D link)")
+    ap.add_argument("--host-spill-pages", type=int, default=0,
+                    help="host-memory KV tier size in pages per run: "
+                         "preemption swaps pages out instead of "
+                         "recomputing, prefix evictions demote to host "
+                         "(paged only; 0 = off)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (the plain versions)")
     args = ap.parse_args(argv)
@@ -120,6 +158,12 @@ def main(argv=None) -> int:
     if args.speculative and not args.paged:
         ap.error("--speculative requires the paged pool (the draft/verify "
                  "loop runs over it)")
+    if args.mixed_sampling and args.temperature <= 0.0:
+        ap.error("--mixed-sampling needs --temperature > 0 (the stochastic "
+                 "half samples at that temperature)")
+    if args.host_spill_pages and not args.paged:
+        ap.error("--host-spill-pages requires the paged pool (the spill "
+                 "tier stores device pool pages)")
     if args.spec_k is None:
         args.spec_k = 4
 
@@ -151,7 +195,8 @@ def main(argv=None) -> int:
         page_size=args.page_size,
         n_pages=args.n_pages, kv_dtype=args.kv_dtype,
         weights_dtype=args.weights_dtype, prefix_cache=args.prefix_cache,
-        speculative=SpecConfig(k=args.spec_k) if args.speculative else None)
+        speculative=SpecConfig(k=args.spec_k) if args.speculative else None,
+        executor=args.executor, host_spill_pages=args.host_spill_pages)
     engine = ServingEngine(cfg, params, sc, device=device)
 
     rng = np.random.default_rng(args.seed)
@@ -167,10 +212,18 @@ def main(argv=None) -> int:
                flash_attention.flash_attention,
                decode_attention.decode_attention, ssd_scan.ssd_chunk)
     launches0 = [k.launches for k in kernels]
+    # per-request sampling: --temperature 0 IS greedy; --mixed-sampling
+    # keeps even-indexed requests greedy
+    sampling = [SamplingParams(
+        temperature=(0.0 if args.mixed_sampling and i % 2 == 0
+                     else args.temperature),
+        top_k=args.top_k, top_p=args.top_p, seed=args.seed + i,
+        max_new_tokens=args.max_new, stop=tuple(args.stop_token))
+        for i in range(len(prompts))]
+    mode_s = "mixed" if args.mixed_sampling else (
+        "greedy" if args.temperature <= 0.0 else f"t={args.temperature}")
     t0 = time.monotonic()
-    done = engine.generate(prompts,
-                           SamplingParams(max_new_tokens=args.max_new,
-                                          stop=tuple(args.stop_token)))
+    done = engine.generate(prompts, sampling)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.monotonic() - t0
@@ -182,7 +235,7 @@ def main(argv=None) -> int:
     tpot_p50 = np.median(tpots) * 1e3 if tpots else float("nan")
     print(f"arch={cfg.name} device={device} strategy={args.strategy} "
           f"chunk={args.prefill_chunk} requests={len(done)} "
-          f"tokens={total_new} wall={wall:.2f}s")
+          f"tokens={total_new} wall={wall:.2f}s sampling={mode_s}")
     reasons_s = " ".join(f"{k}={v}" for k, v in sorted(
         Counter(r.finish_reason for r in done).items(),
         key=lambda kv: str(kv[0])))
@@ -213,6 +266,22 @@ def main(argv=None) -> int:
               f"windows={ss['windows']:.0f} "
               f"acceptance={ss['acceptance_rate']:.2f} "
               f"tokens/tick={ss['tokens_per_tick']:.2f}")
+    if args.executor == "disaggregated":
+        xs = engine.executor.stats()
+        print(f"disaggregated prefill-devices={xs['prefill_devices']} "
+              f"decode-devices={xs['decode_devices']} "
+              f"migrated-pages={xs['migrated_pages']} "
+              f"migrated={xs['migrated_bytes'] / 1e6:.2f}MB "
+              f"handoff-batches={xs['migration_batches']}")
+    if args.host_spill_pages:
+        c = engine.counts()
+        print(f"host-tier pages={args.host_spill_pages} "
+              f"pinned={engine.host_tier.pinned} "
+              f"swap-out={c['swap_out_bytes'] / 1e6:.2f}MB "
+              f"swap-in={c['swap_in_bytes'] / 1e6:.2f}MB "
+              f"swap-resumes={c['swap_resumes']} "
+              f"recompute-resumes={c['recompute_preemptions']} "
+              f"resident-pages={c['host_resident_pages']}")
     print("kernel launches: " + " ".join(
         f"{k.__name__}={k.launches - n}" for k, n in zip(kernels, launches0)))
     return 0

@@ -1,10 +1,11 @@
 """Serving engine: continuous batching that EXECUTES the phase scheduler's
-plan (port of the greedy path of src/repro/serving/engine.py, over the
-paged pool or the dense arena).
+plan (port of src/repro/serving/engine.py, over the paged pool or the dense
+arena).
 
 One engine tick = one ``PhaseScheduler.plan_tick`` executed verbatim:
 
-  1. admit    — waiting requests claim free decode slots;
+  1. admit    — waiting requests claim free decode slots (a request whose
+                KV was swapped to the host tier swaps back in first);
   2. prefill  — the plan's (request, n_tokens) chunks are laid out as ONE
                 flat token stream (``pack_chunks``) and run through the
                 prefill-group program, which writes K/V straight into the
@@ -13,8 +14,8 @@ One engine tick = one ``PhaseScheduler.plan_tick`` executed verbatim:
                 interleaved with decode.  With ``prefill_chunk = 0`` each
                 prompt prefills whole in one program instead (the dense
                 arena only), its K/V spliced into its slot;
-  3. decode   — one batched token step for every DECODING slot, greedy
-                argmax on the device, one [B] host transfer per tick.
+  3. decode   — one batched token step for every DECODING slot, sampled on
+                the device, one [B] host transfer per tick.
 
 The KV arena is either the dense per-slot arena [L, max_batch, max_len,
 Hkv, D] (``paged=False``, the ``ServeConfig`` default: every slot pins
@@ -38,6 +39,19 @@ SSD chunk kernel) and cannot use the paged pool, as in the reference.
 On the paged pool, ``packed_prefill=False`` lays a tick's chunks out as a
 padded [N, C] batch instead (``forward_chunk``, plain attention).
 
+THE REQUEST API: ``submit(prompt, sampling=SamplingParams(...))`` carries
+per-request temperature (0 = greedy) / top-k / top-p / seed / token budget
+/ stop conditions.  Every program takes per-row [N] parameter tensors
+(``_pack_params``: one upload per call), so one program serves a batch
+mixing greedy and stochastic requests, still one host transfer per call; a
+tick whose rows are all greedy keeps the argmax path (no sort, no draws).
+A stochastic row's draws are a pure function of its seed and its emission
+count (``sampling.row_keys``).  ``step()`` returns incremental
+``RequestOutput``s, ``stream()`` / ``generate()`` are the streaming and
+batch facades, ``abort(req_id)`` cancels a request at any stage (queued,
+swapped out, prefilling, decoding) and ``metrics_snapshot()`` returns the
+registry with the occupancy gauges refreshed.
+
 PREFIX CACHE (``prefix_cache=True``, paged only): a radix index over
 page-aligned token-block hashes (``serving/prefix_cache.py``) maps each
 new prompt's longest cached prefix to physical pages; admission attaches
@@ -53,14 +67,30 @@ SPECULATIVE DECODING (``speculative=SpecConfig(drafter="ngram")``, paged
 only): every decode tick the n-gram drafter proposes up to k tokens per
 decoding request, and ONE verify window of the target model (a padded
 [N, k+1] chunk forward, logits at every position) accepts the longest
-prefix agreeing with the target's argmax plus one correction or bonus
-token; the packed [N, k+2] result crosses to the host once.  Rejected
-tokens' KV rolls back via ``KVPool.truncate``.
+prefix agreeing with the target (greedy rows) or runs Leviathan rejection
+sampling (stochastic rows), plus one correction or bonus token; the packed
+[N, k+2] result crosses to the host once.  Rejected tokens' KV rolls back
+via ``KVPool.truncate``.
 
-The host logic (admission, planning, packing, preemption, retirement,
-counters) is the reference's, line for line where the slice reaches it, so
-the tick log of this engine equals the reference engine's on the same
-traffic.  ``ServeConfig`` options outside the slice raise
+THE HOST TIER (``host_spill_pages > 0``, paged only): ``HostTier`` holds
+that many pages per run in host memory (pinned when the pool is on the
+card).  A preemption victim's pages swap out to it — one ``index_select``
+per leaf into pinned memory, one sync a swap — and swap back in at
+re-admission, so the request resumes with zero recomputation (recompute
+stays the fallback when the tier is full); with the prefix cache, evicted
+blocks demote to the tier and promote back on a later hit instead of being
+dropped.
+
+EXECUTORS (``serving/executor.py``): ``colocated`` runs every program on
+the engine's device; ``disaggregated`` pins prefill-side programs and
+decode programs to separate device groups and prices every prefill ->
+decode handoff as KV crossing the 2.5D link (``_record_handoff``).  With
+one card both groups are that card, and streams equal the colocated ones.
+
+The host logic (admission, planning, packing, preemption, swapping,
+retirement, counters) is the reference's, line for line where the slice
+reaches it, so the tick log of this engine equals the reference engine's
+on the same traffic.  ``ServeConfig`` options outside the slice raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
@@ -69,9 +99,9 @@ from __future__ import annotations
 import time
 import warnings
 from collections import deque
-from dataclasses import replace
-from typing import (Any, Callable, Deque, Dict, List, Optional, Sequence,
-                    Tuple, Union)
+from dataclasses import dataclass, replace
+from typing import (Any, Callable, Deque, Dict, Iterator, List, Optional,
+                    Sequence, Tuple, Union)
 
 import numpy as np
 import torch
@@ -88,13 +118,14 @@ from repro_torch.models.transformer import (
     supports_paged,
 )
 from repro_torch.serving.executor import make_executor
-from repro_torch.serving.kv_pool import KVPool
+from repro_torch.serving.kv_pool import HostTier, KVPool
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.quantized_weights import quantize_params
 from repro_torch.serving.metrics import (MetricsRegistry, counter_attr,
                                          gauge_attr)
-from repro_torch.serving.sampling import (SamplingParams, require_greedy,
-                                          sample_greedy, verify_draft)
+from repro_torch.serving.sampling import (SamplingParams, row_keys,
+                                          sample_greedy, sample_tokens_rows,
+                                          verify_draft, verify_draft_rows)
 from repro_torch.serving.scheduler import (
     PhaseScheduler,
     TickPlan,
@@ -166,10 +197,6 @@ def _unported(sc: ServeConfig, chunked: bool) -> Optional[str]:
          "prefill batch): item 11"),
         (sc.speculative is not None and sc.speculative.drafter == "model",
          "speculative drafter='model' (a draft model): item 7c"),
-        (sc.host_spill_pages > 0, "host_spill_pages > 0 (host tier): item 9"),
-        (not sc.default_sampling().greedy,
-         "a stochastic default sampling (greedy=False): item 8"),
-        (sc.executor == "disaggregated", "executor='disaggregated': item 9"),
         (sc.admission is not None, "admission control: item 10"),
     ]
     for hit, what in checks:
@@ -178,13 +205,30 @@ def _unported(sc: ServeConfig, chunked: bool) -> Optional[str]:
     return None
 
 
+@dataclass
+class _SwapHandle:
+    """Where a swapped-out request's KV lives while it waits in the queue
+    (``Request.swap``): per-run host-tier page lists in block-table row
+    order, plus the slot state a swap-in must restore verbatim."""
+    length: int                       # logical tokens the pages back
+    pages: List[List[int]]            # per run: host page ids, row order
+    prefill_pos: int
+    cached_tokens: int
+    pos: int                          # slot_pos at swap-out (-1 mid-prefill)
+    state: RequestState               # PREFILLING or DECODING
+
+
 class ServingEngine:
     # Lifetime counters live in the METRICS REGISTRY (serving/metrics.py):
     # each attribute below is a view over one named registry cell, so the
     # dict APIs (counts()) and MetricsRegistry.snapshot() / render() can
-    # never disagree.
+    # never disagree.  The executor, HostTier and PrefixCache share the
+    # same registry.
     host_transfers = counter_attr("serving_host_transfers_total")
+    aborted = counter_attr("serving_aborted_total")
     preemptions = counter_attr("serving_preemptions_total")
+    swap_outs = counter_attr("serving_swap_outs_total")
+    swap_resumes = counter_attr("serving_swap_resumes_total")
     recompute_preemptions = counter_attr("serving_recompute_preemptions_total")
     prefill_tokens_executed = counter_attr("serving_prefill_tokens_total")
     cow_copies = counter_attr("serving_cow_copies_total")
@@ -205,7 +249,9 @@ class ServingEngine:
     # the counters step() diffs to fill each TickRecord's per-tick fields
     _TICK_DELTA_KEYS = ("serving_preemptions_total",
                         "serving_spec_drafted_total",
-                        "serving_spec_accepted_total")
+                        "serving_spec_accepted_total",
+                        "serving_swap_out_bytes_total",
+                        "serving_swap_in_bytes_total")
 
     def __init__(self, cfg: ModelConfig, params: Any, sc: ServeConfig,
                  *, device=None):
@@ -249,11 +295,20 @@ class ServingEngine:
             self.cache = self.pool.caches
         else:
             self.cache = init_cache(cfg, B, S, self.device)
+        # host-memory spill tier (tiered KV): preemption swaps pages out
+        # instead of recomputing, prefix-cache evictions demote to host
+        self.host_tier: Optional[HostTier] = (
+            HostTier(self.pool, sc.host_spill_pages, metrics=self.metrics)
+            if sc.paged and sc.host_spill_pages > 0 else None)
         self.prefix: Optional[PrefixCache] = None
         if sc.paged and sc.prefix_cache:
-            self.prefix = PrefixCache(sc.page_size,
-                                      self.pool.shareable_capacity(),
-                                      metrics=self.metrics)
+            tiered = self.host_tier is not None
+            self.prefix = PrefixCache(
+                sc.page_size, self.pool.shareable_capacity(),
+                demote=self._demote_pages if tiered else None,
+                promote=self._promote_pages if tiered else None,
+                discard=self._discard_host_pages if tiered else None,
+                metrics=self.metrics)
         self.spec = sc.speculative
         self.drafter = None
         if self.spec is not None:
@@ -292,9 +347,13 @@ class ServingEngine:
         self._n_decode_ticks = 0
         self._n_mixed_ticks = 0
         self.host_transfers = 0          # device->host syncs (see _to_host)
+        self.aborted = 0                 # requests cancelled via abort()
         self.preemptions = 0             # lifetime pool evictions
         self.kv_resident_peak = 0        # peak allocated KV bytes
-        self.recompute_preemptions = 0   # every preemption recomputes here
+        # tiered-KV counters: how preemptions resumed (swap vs recompute)
+        self.swap_outs = 0               # victims whose pages went to host
+        self.swap_resumes = 0            # swapped requests resumed from host
+        self.recompute_preemptions = 0   # fell back to recompute-on-resume
         self.prefill_tokens_executed = 0  # chunk tokens actually computed
         self.cow_copies = 0              # device page copies (COW)
         self.cache_evicted_pages = 0     # pages reclaimed from the cache
@@ -316,7 +375,7 @@ class ServingEngine:
             "packed_paged": self._prefill_packed_paged_impl,
             "chunk_paged": self._prefill_chunk_paged_impl,
             "verify": self._verify_impl,
-        }, metrics=self.metrics)
+        }, metrics=self.metrics, device=self.device)
 
     # -- program table (owned by the executor) ---------------------------------
     @property
@@ -331,27 +390,42 @@ class ServingEngine:
         self.executor.note_compile(group, kind, shape, all_greedy)
 
     # -- phase programs ---------------------------------------------------------
+    def _sample(self, logits, temps, top_ks, top_ps, seeds, counters,
+                all_greedy):
+        """logits [N, 1, V] -> int32 tokens [N] (the reference's
+        ``_sample``).  Per-row sampling params ([N] tensors); a row with
+        temperature <= 0 is greedy, so one program serves mixed batches.
+        An all-greedy call takes the argmax alone: no sort, no draws."""
+        if all_greedy:
+            return sample_greedy(logits)
+        return sample_tokens_rows(logits[:, -1], temps, top_ks, top_ps,
+                                  row_keys(seeds, counters))
+
     @torch.inference_mode()
-    def _prefill_whole_impl(self, params, tokens, slot, cache, all_greedy):
+    def _prefill_whole_impl(self, params, tokens, slot, cache, temps,
+                            top_ks, top_ps, seeds, counters, all_greedy):
         """Whole-prompt prefill of one request (tokens [1, T]) with its K/V
         spliced into arena slot ``slot``.  Returns [1] int32 tokens."""
         logits, cache = prefill_into_arena(params, self.cfg,
                                            {"tokens": tokens}, slot, cache)
-        return sample_greedy(logits), cache
+        return self._sample(logits, temps, top_ks, top_ps, seeds, counters,
+                            all_greedy), cache
 
     @torch.inference_mode()
     def _prefill_packed_impl(self, params, tokens, starts, offsets, lengths,
-                             slots, cache, all_greedy):
+                             slots, cache, temps, top_ks, top_ps, seeds,
+                             counters, all_greedy):
         """Packed-stream chunk prefill into the dense arena: the tick's
         chunks as one flat [T] token stream.  Returns [N] int32 tokens."""
         logits, cache = forward_chunk_packed(
             params, self.cfg, tokens, starts, offsets, lengths, slots,
             cache, pack_align=self.sc.phase.pack_align)
-        return sample_greedy(logits), cache
+        return self._sample(logits, temps, top_ks, top_ps, seeds, counters,
+                            all_greedy), cache
 
     @torch.inference_mode()
-    def _decode_impl(self, params, tokens, cache, pos, slot_mask,
-                     all_greedy):
+    def _decode_impl(self, params, tokens, cache, pos, slot_mask, temps,
+                     top_ks, top_ps, seeds, counters, all_greedy):
         """One-token decode over the dense arena, all max_batch rows.  The
         reference merges old and new arena over the whole arena with
         ``where(slot_mask, new, old)``; here only the ``slot_mask`` rows
@@ -360,11 +434,13 @@ class ServingEngine:
         logits, cache, _ = forward(params, self.cfg, {"tokens": tokens},
                                    phase="decode", cache=cache, pos=pos,
                                    slot_mask=slot_mask)
-        return sample_greedy(logits), cache
+        return self._sample(logits, temps, top_ks, top_ps, seeds, counters,
+                            all_greedy), cache
 
     @torch.inference_mode()
     def _prefill_packed_paged_impl(self, params, tokens, starts, offsets,
                                    lengths, slots, cache, block_tables,
+                                   temps, top_ks, top_ps, seeds, counters,
                                    all_greedy):
         """Packed-stream chunk prefill into the page pool: the tick's chunks
         as one flat [T] token stream — one launch per layer, one shape key
@@ -373,59 +449,72 @@ class ServingEngine:
             params, self.cfg, tokens, starts, offsets, lengths, slots,
             cache, block_tables=block_tables,
             pack_align=self.sc.phase.pack_align)
-        return sample_greedy(logits), cache
+        return self._sample(logits, temps, top_ks, top_ps, seeds, counters,
+                            all_greedy), cache
 
     @torch.inference_mode()
     def _prefill_chunk_paged_impl(self, params, tokens, offsets, lengths,
-                                  slots, cache, block_tables, all_greedy):
+                                  slots, cache, block_tables, temps, top_ks,
+                                  top_ps, seeds, counters, all_greedy):
         """Padded [N, C] chunk prefill into the page pool (block-table
         scatter).  Returns [N] int32 tokens (row i samples chunk i)."""
         logits, cache = forward_chunk(params, self.cfg, tokens, offsets,
                                       lengths, slots, cache,
                                       block_tables=block_tables)
-        return sample_greedy(logits), cache
+        return self._sample(logits, temps, top_ks, top_ps, seeds, counters,
+                            all_greedy), cache
 
     @torch.inference_mode()
     def _verify_impl(self, params, tokens, offsets, lengths, slots, cache,
-                     block_tables, draft, all_greedy):
+                     block_tables, draft, temps, top_ks, top_ps, seeds,
+                     counters, all_greedy):
         """Speculative verify: ONE chunk forward of the target model over
         each row's [last_committed, d_1, .., d_k] window against the pool
         (K/V written like any prefill chunk), logits at EVERY window
-        position, greedy accept on the device.  Returns one packed [N, C+1]
-        int32 array — C candidate tokens plus the emission count — so the
-        host reads the tick's result in one transfer."""
+        position, accept/resample on the device with per-row params
+        (greedy rows accept the argmax prefix, stochastic rows run
+        Leviathan rejection sampling with their own keys).  Returns one
+        packed [N, C+1] int32 array — C candidate tokens plus the emission
+        count — so the host reads the tick's result in one transfer."""
         logits, cache = forward_chunk(params, self.cfg, tokens, offsets,
                                       lengths, slots, cache,
                                       block_tables=block_tables,
                                       return_all_logits=True)
-        toks, n_emit = verify_draft(logits, draft, lengths - 1)
+        if all_greedy:
+            toks, n_emit = verify_draft(logits, draft, lengths - 1)
+        else:
+            toks, n_emit = verify_draft_rows(
+                logits, draft, lengths - 1, temps, top_ks, top_ps,
+                row_keys(seeds, counters))
         return torch.cat([toks, n_emit[:, None]], dim=1), cache
 
     @torch.inference_mode()
     def _decode_paged_impl(self, params, tokens, cache, pos, block_tables,
+                           temps, top_ks, top_ps, seeds, counters,
                            all_greedy):
         """One-token decode over the page pool.  Inactive rows carry
         all-sentinel block-table rows, so their K/V writes drop."""
         logits, cache, _ = forward(params, self.cfg, {"tokens": tokens},
                                    phase="decode", cache=cache, pos=pos,
                                    block_tables=block_tables)
-        return sample_greedy(logits), cache
+        return self._sample(logits, temps, top_ks, top_ps, seeds, counters,
+                            all_greedy), cache
 
     # -- public API -----------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: Optional[int] = None,
                eos_id: Optional[int] = None, *,
                sampling: Optional[SamplingParams] = None) -> Request:
-        """Queue one request (greedy sampling only in this slice).
+        """Queue one request.
 
-        ``sampling`` carries the per-request parameters; omitted, the
-        ``ServeConfig`` defaults apply.  ``max_new_tokens`` / ``eos_id``
-        override the corresponding ``sampling`` fields when given."""
+        ``sampling`` carries the per-request parameters (temperature 0 is
+        greedy); omitted, the ``ServeConfig`` defaults apply.
+        ``max_new_tokens`` / ``eos_id`` override the corresponding
+        ``sampling`` fields when given."""
         sp = sampling if sampling is not None else self._default_sampling
         if max_new_tokens is not None:
             sp = replace(sp, max_new_tokens=max_new_tokens)
         if eos_id is not None:
             sp = replace(sp, eos_id=eos_id)
-        require_greedy(sp)
         req = Request(self._next_id, np.asarray(prompt, np.int32), sp)
         req.seed = sp.seed if sp.seed is not None else (
             (self.sc.seed * 2654435761 + req.req_id + 1) & 0x7FFFFFFF)
@@ -447,12 +536,75 @@ class ServingEngine:
         self.queue.append(req)
         return req
 
+    def abort(self, req_id: int) -> Optional[RequestOutput]:
+        """Cancel a request at ANY lifecycle stage.
+
+        WAITING: dequeued (a swapped-out request's host pages are freed).
+        PREFILLING / DECODING (speculative verify state included): its slot
+        is vacated — its pool references (owned and prefix-cache-attached
+        pages) and drafter state are released; pages the prefix cache
+        pinned stay cached.  Returns the terminal ``RequestOutput``
+        (finish_reason "abort"), or None for an unknown or finished id.
+        Tokens already generated remain on the Request."""
+        req = None
+        for i, r in enumerate(self.queue):
+            if r.req_id == req_id:
+                req = self.queue.pop(i)
+                if req.swap is not None:    # swapped-out KV dies with it
+                    for r_idx, host_pages in enumerate(req.swap.pages):
+                        self.host_tier.release(r_idx, host_pages)
+                    req.swap = None
+                break
+        if req is None:
+            for r in self.slot_req:
+                if r is not None and r.req_id == req_id:
+                    req = r
+                    if self.drafter is not None:
+                        self.drafter.release(r.slot)
+                    if self.paged:
+                        self.pool.release(r.slot)
+                    self.slot_req[r.slot] = None
+                    self.slot_pos[r.slot] = -1
+                    r.slot = -1
+                    break
+        if req is None:
+            return None
+        self.aborted += 1
+        req.state = RequestState.DONE
+        req.finish_reason = "abort"
+        req.t_done = time.monotonic()
+        self.done.append(req)
+        return RequestOutput(req_id=req.req_id, new_token_ids=[],
+                             n_generated=len(req.generated), finished=True,
+                             finish_reason="abort")
+
     # -- helpers ----------------------------------------------------------------
     def _to_host(self, arr: torch.Tensor) -> np.ndarray:
         """The engine's single device->host transfer point: one token array
         per phase-program call."""
         self.host_transfers += 1
         return arr.cpu().numpy()
+
+    def _pack_params(self, rows: Sequence[Tuple[int, Request]], n: int):
+        """Per-request sampling params as [n] tensors for one program call
+        (the reference's ``_pack_params``).  ``rows`` maps row index ->
+        request (a packed-batch index for prefill and verify, the SLOT for
+        dense decode); unmapped rows are greedy placeholders.  The counter
+        is the index of the token being sampled (tokens emitted so far).
+        Returns the five tensors — from ONE upload, or None each when every
+        row is greedy (the argmax path reads none) — and ``all_greedy``."""
+        packed = np.zeros((5, n), np.float64)
+        all_greedy = True
+        for i, r in rows:
+            sp = r.sampling
+            packed[:, i] = (np.float32(sp.temperature), sp.top_k,
+                            np.float32(sp.top_p), r.seed, len(r.generated))
+            all_greedy = all_greedy and sp.greedy
+        if all_greedy:
+            return (None,) * 5, True
+        t = self._tensor(packed)
+        return (t[0].float(), t[1].long(), t[2].float(), t[3].long(),
+                t[4].long()), False
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -466,7 +618,19 @@ class ServingEngine:
         # the queue is age-ordered (submit appends, _preempt inserts by
         # req_id), so slots go FIFO
         while free and self.queue:
-            req = self.queue.pop(0)
+            req = self.queue[0]
+            if req.swap is not None:
+                # swap-resume: the head's KV lives in the host tier; it
+                # re-enters only when its device pages fit again, and on
+                # failure the head WAITS (a lone request always fits the
+                # pool and cached pages are always reclaimable)
+                if not self._try_swap_in(req, free[0]):
+                    break
+                self.queue.pop(0)
+                free.pop(0)
+                admitted.append(req)
+                continue
+            self.queue.pop(0)
             slot = free.pop(0)
             req.slot = slot
             req.state = RequestState.PREFILLING
@@ -567,13 +731,16 @@ class ServingEngine:
 
     def _preempt(self, req: Request) -> None:
         """Evict ``req`` from its slot: pages back to the pool, request back
-        to WAITING (age-ordered), resumed by recompute."""
+        to WAITING (age-ordered).  With a host tier the victim's KV swaps
+        out (exact page copies, resumed with zero recomputation); without
+        one, or when the tier is full, it resumes by recompute."""
         assert self.paged and req.slot >= 0
         if self.drafter is not None:
             self.drafter.release(req.slot)
-        req.prefill_pos = 0
-        req.cached_tokens = 0           # re-matched at re-admission
-        self.recompute_preemptions += 1
+        if not self._swap_out(req):
+            req.prefill_pos = 0
+            req.cached_tokens = 0       # re-matched at re-admission
+            self.recompute_preemptions += 1
         self.pool.release(req.slot)
         self.slot_req[req.slot] = None
         self.slot_pos[req.slot] = -1
@@ -621,12 +788,168 @@ class ServingEngine:
         if victim is not oldest:
             self._preempt(victim)
 
+    # -- tiered KV (host spill) --------------------------------------------------
+    @torch.inference_mode()
+    def _pages_to_host(self, r: int, dev_pages: Sequence[int],
+                       host_pages: Sequence[int]) -> None:
+        """Device pages of run ``r`` -> host pages, row for row, every leaf:
+        one ``index_select`` per leaf, then asynchronous copies into the
+        pinned store on the engine's stream (the caller syncs once)."""
+        idx = torch.tensor(list(dev_pages), dtype=torch.long,
+                           device=self.device)
+        self.host_tier.store_pages(
+            r, host_pages, {k: leaf.index_select(1, idx)
+                            for k, leaf in self.cache[r].items()})
+
+    @torch.inference_mode()
+    def _pages_to_device(self, r: int, host_pages: Sequence[int],
+                         dev_pages: Sequence[int]) -> None:
+        """Host pages of run ``r`` -> device pages, row for row, every leaf:
+        asynchronous uploads from the pinned store, then one ``index_copy_``
+        per leaf into the pool, in place."""
+        idx = torch.tensor(list(dev_pages), dtype=torch.long,
+                           device=self.device)
+        for k, vals in self.host_tier.load_pages(r, host_pages,
+                                                 self.device).items():
+            self.cache[r][k].index_copy_(1, idx, vals)
+
+    def _sync(self) -> None:
+        """Wait for the engine's stream (a swap's one sync)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _read_page(self, r: int, page: int) -> Dict[str, torch.Tensor]:
+        """One device page across every layer, copied to host tensors —
+        pool leaves are [L, n_pages, P, ...], so each leaf yields
+        [L, P, ...].  (The engine moves pages in batches,
+        ``_pages_to_host`` / ``_pages_to_device``; this reads one for a
+        check.)"""
+        return {k: leaf[:, page].to("cpu", copy=True)
+                for k, leaf in self.cache[r].items()}
+
+    def _swap_out(self, req: Request) -> bool:
+        """Copy a preemption victim's device pages into the host tier and
+        hang a ``_SwapHandle`` off the request.  All-or-nothing: False (no
+        state change) when the tier is absent, the slot holds nothing, or
+        host pages run short — the caller then falls back to
+        recompute-on-resume."""
+        if self.host_tier is None:
+            return False
+        length = self.pool.len_of(req.slot)
+        if length <= 0:
+            return False
+        pools = self.pool.pools
+        need = [p.pages_of(length) for p in pools]
+        if any(self.host_tier.free_pages(r) < n for r, n in enumerate(need)):
+            return False
+        pages: List[List[int]] = []
+        for r, p in enumerate(pools):
+            host = self.host_tier.alloc(r, need[r])
+            assert host is not None     # free_pages checked per run above
+            self._pages_to_host(r, [int(q) for q in p.table[req.slot,
+                                                           :need[r]]], host)
+            pages.append(host)
+        self._sync()
+        req.swap = _SwapHandle(
+            length=length, pages=pages, prefill_pos=req.prefill_pos,
+            cached_tokens=req.cached_tokens,
+            pos=int(self.slot_pos[req.slot]), state=req.state)
+        self.swap_outs += 1
+        return True
+
+    def _try_swap_in(self, req: Request, slot: int) -> bool:
+        """Restore a swapped-out request into ``slot``: regrow its device
+        pages (reclaiming cached pages on a shortfall), upload the host
+        copies row for row, and resume EXACTLY where it left off — the
+        swap path re-prefills zero tokens.  False leaves the request at
+        the queue head with its handle intact."""
+        h = req.swap
+        if not self.pool.grow(slot, h.length):
+            deficit = max(p.pages_of(h.length) - p.free_pages()
+                          for p in self.pool.pools)
+            self._reclaim_cache(deficit)
+            if not self.pool.grow(slot, h.length):
+                return False
+        req.slot = slot
+        self.slot_req[slot] = req
+        for r, p in enumerate(self.pool.pools):
+            self._pages_to_device(r, h.pages[r],
+                                  [int(q) for q in p.table[slot,
+                                                           :len(h.pages[r])]])
+            self.host_tier.release(r, h.pages[r])
+        req.prefill_pos = h.prefill_pos
+        req.cached_tokens = h.cached_tokens
+        req.state = h.state
+        self.slot_pos[slot] = h.pos     # -1 for a mid-prefill swap
+        req.swap = None
+        self.swap_resumes += 1
+        return True
+
+    def _demote_pages(self, dev_pages: List[int]) -> Optional[List[int]]:
+        """PrefixCache demote callback: copy one cached block (one device
+        page PER RUN) into the host tier.  All-or-nothing; None makes the
+        cache hard-drop the block instead."""
+        host: List[int] = []
+        for r, q in enumerate(dev_pages):
+            got = self.host_tier.alloc(r, 1)
+            if got is None:
+                for rr, hp in enumerate(host):
+                    self.host_tier.release(rr, [hp])
+                return None
+            host.append(got[0])
+            self._pages_to_host(r, [int(q)], got)
+        self._sync()
+        return host
+
+    def _promote_pages(self, host_pages: List[int]) -> Optional[List[int]]:
+        """PrefixCache promote callback: re-materialise a demoted block on
+        device — fresh externally-owned pages (``alloc_external``) — and
+        free the host copies.  None when any run's free list is empty
+        (partial hit)."""
+        if any(not p.free for p in self.pool.pools):
+            return None
+        dev: List[int] = []
+        for r, hp in enumerate(host_pages):
+            q = self.pool.pools[r].alloc_external()
+            assert q is not None        # free list checked above
+            self._pages_to_device(r, [hp], [q])
+            self.host_tier.release(r, [hp])
+            dev.append(q)
+        return dev
+
+    def _discard_host_pages(self, host_pages: List[int]) -> None:
+        """PrefixCache discard callback: a demoted block died (evicted
+        subtree / re-published over) — drop its host copies."""
+        for r, hp in enumerate(host_pages):
+            self.host_tier.release(r, [hp])
+
+    # -- prefill -> decode handoff (the 2.5D-link analogue) ----------------------
+    def _record_handoff(self, req: Request) -> None:
+        """Price the KV a prefill -> decode handoff moves across HALO's
+        2.5D interposer link (CiM prefill stack -> CiD decode stack).
+        Only NEWLY-built state moves — prefix-cache hits are already
+        decode-side resident.  Colocated executors have no link: no-op."""
+        if not self.executor.migrates_kv:
+            return
+        eff = self._effective_len(req)
+        if self.paged:
+            pages = nbytes = 0
+            for r, p in enumerate(self.pool.pools):
+                n = max(p.pages_of(eff) - p.pages_of(req.cached_tokens), 0)
+                pages += n
+                nbytes += n * self.pool.page_bytes(r)
+        else:
+            pages = 0
+            nbytes = eff * self._dense_token_bytes + self._dense_state_bytes
+        self.executor.record_handoff(pages, nbytes)
+
     def _append_token(self, req: Request, tok) -> None:
         req.generated.append(int(np.asarray(tok).reshape(-1)[0]))
 
     def _start_decoding(self, req: Request, tok) -> None:
         self._publish_prefix(req)       # prompt pages complete & unwrapped
         self.slot_pos[req.slot] = self._effective_len(req)
+        self._record_handoff(req)       # KV crosses the phase boundary here
         if req.sampling.max_new_tokens == 0 and not req.generated:
             # prefill-only request: the seeding sample is discarded
             req.finish_reason = "length"
@@ -712,11 +1035,13 @@ class ServingEngine:
             self._prefill_progress = True
             for req, take in chunks:
                 tokens = self._tensor(req.prompt[None])
+                pp, all_greedy = self._pack_params([(0, req)], 1)
                 self._note_compile(plan.prefill_group, "whole",
-                                   (req.prompt_len,), True)
+                                   (req.prompt_len,), all_greedy)
                 toks, self.cache = self._program(plan.prefill_group,
                                                  "whole")(
-                    self.params, tokens, req.slot, self.cache, True)
+                    self.params, tokens, req.slot, self.cache, *pp,
+                    all_greedy)
                 req.prefill_pos = req.prompt_len
                 self.prefill_tokens_executed += req.prompt_len
                 self.prefill_launches += 1
@@ -775,7 +1100,8 @@ class ServingEngine:
             offs[i] = req.prefill_pos
             lens[i] = take
             slots[i] = req.slot
-        all_greedy = True
+        pp, all_greedy = self._pack_params(
+            [(i, req) for i, (req, _) in enumerate(chunks)], N)
         self.prefill_rows_executed += N * C
         self._note_compile(plan.prefill_group, "chunk_paged", (N, C),
                            all_greedy)
@@ -783,7 +1109,7 @@ class ServingEngine:
             self.params, self._tensor(tokens), self._tensor(offs),
             self._tensor(lens), self._tensor(slots), self.cache,
             self.pool.block_tables(upto=int((offs + lens).max())),
-            all_greedy)
+            *pp, all_greedy)
         return toks
 
     def _launch_packed_prefill(self, plan: TickPlan, chunks) -> Any:
@@ -809,7 +1135,8 @@ class ServingEngine:
             offs[i] = req.prefill_pos
             lens[i] = take
             slots[i] = req.slot
-        all_greedy = True
+        pp, all_greedy = self._pack_params(
+            [(i, req) for i, (req, _) in enumerate(chunks)], Nb)
         self.prefill_rows_executed += T
         args = (self.params, self._tensor(tokens), self._tensor(starts),
                 self._tensor(offs), self._tensor(lens), self._tensor(slots),
@@ -819,12 +1146,12 @@ class ServingEngine:
                                all_greedy)
             toks, self.cache = self._program(plan.prefill_group,
                                              "packed_paged")(
-                *args, self.pool.block_tables(), all_greedy)
+                *args, self.pool.block_tables(), *pp, all_greedy)
         else:
             self._note_compile(plan.prefill_group, "packed", (T, Nb),
                                all_greedy)
             toks, self.cache = self._program(plan.prefill_group, "packed")(
-                *args, all_greedy)
+                *args, *pp, all_greedy)
         return toks
 
     # -- speculative draft/verify ------------------------------------------------
@@ -866,13 +1193,14 @@ class ServingEngine:
             offs[i] = self.slot_pos[r.slot]
             lens[i] = kd + 1
             slots[i] = r.slot
-        all_greedy = True
+        pp, all_greedy = self._pack_params(
+            [(i, r) for i, (r, _) in enumerate(rows)], N)
         self._note_compile(plan.verify_group, "verify", (N, C), all_greedy)
         out, self.cache = self._program(plan.verify_group, "verify")(
             self.params, self._tensor(tokens), self._tensor(offs),
             self._tensor(lens), self._tensor(slots), self.cache,
             self.pool.block_tables(upto=int((offs + lens).max())),
-            self._tensor(draft), all_greedy)
+            self._tensor(draft), *pp, all_greedy)
         packed = self._to_host(out)                 # [N, C+1], one transfer
         for i, (r, d) in enumerate(rows):
             kd = int(d.shape[-1])
@@ -956,7 +1284,6 @@ class ServingEngine:
             active = survivors
         if not active:
             return
-        all_greedy = True
         if self.paged:
             # the pool addresses KV through the CALL's block tables, so the
             # decode batch compacts: active slots map to rows
@@ -967,6 +1294,8 @@ class ServingEngine:
             for i, r in enumerate(active):
                 tokens[i, 0] = r.generated[-1]
                 pos[i] = self.slot_pos[r.slot]
+            pp, all_greedy = self._pack_params(
+                [(i, r) for i, r in enumerate(active)], nb)
             self._note_compile(plan.decode_group, "decode_paged", (nb,),
                                all_greedy)
             # pad rows carry all-sentinel block-table rows: their writes
@@ -976,7 +1305,7 @@ class ServingEngine:
                 self.params, self._tensor(tokens), self.cache,
                 self._tensor(pos),
                 self.pool.block_tables(rows=[r.slot for r in active], n=nb),
-                all_greedy)
+                *pp, all_greedy)
             emitted = list(enumerate(active))
         else:
             # the dense arena is slot-indexed, so the batch stays [B], with
@@ -990,10 +1319,12 @@ class ServingEngine:
                 mask[r.slot] = True
             pos = np.where(self.slot_pos >= 0, self.slot_pos,
                            0).astype(np.int32)
+            pp, all_greedy = self._pack_params(
+                [(r.slot, r) for r in active], B)
             self._note_compile(plan.decode_group, "decode", (B,), all_greedy)
             toks, self.cache = self._program(plan.decode_group, "decode")(
                 self.params, self._tensor(tokens), self.cache,
-                self._tensor(pos), self._tensor(mask), all_greedy)
+                self._tensor(pos), self._tensor(mask), *pp, all_greedy)
             emitted = [(r.slot, r) for r in active]
         sampled = self._to_host(toks)               # one transfer per tick
         for row, r in emitted:
@@ -1065,7 +1396,13 @@ class ServingEngine:
             kv_resident_bytes=resident,
             spec_drafted=int(delta["serving_spec_drafted_total"]),
             spec_accepted=int(delta["serving_spec_accepted_total"]),
-            new_compiles=self.executor.tick_new_compiles)
+            new_compiles=self.executor.tick_new_compiles,
+            migrated_pages=self.executor.tick_migrated_pages,
+            migrated_bytes=self.executor.tick_migrated_bytes,
+            swap_out_bytes=int(delta["serving_swap_out_bytes_total"]),
+            swap_in_bytes=int(delta["serving_swap_in_bytes_total"]),
+            host_resident_pages=(self.host_tier.used_pages()
+                                 if self.host_tier is not None else 0))
         self.metrics.observe("serving_tick_wall_seconds", rec.wall_s)
         self.tick_log.append(rec)
         self._n_ticks += 1
@@ -1092,14 +1429,39 @@ class ServingEngine:
         return outputs
 
     def counts(self) -> Dict[str, int]:
-        """Queue/slot/done occupancy plus the lifetime counters — every
-        value is a view over the metrics registry (or derived from one).
-        The reference's keys for what this slice does not have (SLO
-        goodput, deferral, shedding, migration, host swap) are left out."""
+        """Queue/slot/done occupancy plus the lifetime migration and
+        tiered-KV counters — every value is a view over the metrics
+        registry (or derived from one).  The reference's admission and SLO
+        keys (deferred, shed, slo_*, goodput) come with ROADMAP queue A,
+        item 10."""
+        tier = self.host_tier
         return {"queued": len(self.queue),
                 "active": sum(r is not None for r in self.slot_req),
                 "done": len(self.done),
-                "recompute_preemptions": self.recompute_preemptions}
+                "migrated_pages": self.executor.migrated_pages,
+                "migrated_bytes": self.executor.migrated_bytes,
+                "swap_out_bytes": tier.swap_out_bytes if tier else 0,
+                "swap_in_bytes": tier.swap_in_bytes if tier else 0,
+                "swap_resumes": self.swap_resumes,
+                "recompute_preemptions": self.recompute_preemptions,
+                "host_resident_pages": tier.used_pages() if tier else 0}
+
+    def metrics_snapshot(self) -> Dict[str, Dict]:
+        """The full registry snapshot (counters / gauges / histograms)
+        with the point-in-time occupancy gauges refreshed first — the
+        machine-readable superset of ``counts()`` / ``spec_stats()`` /
+        ``prefix_stats()``."""
+        m = self.metrics
+        m.set_gauge("serving_requests_queued", len(self.queue))
+        m.set_gauge("serving_requests_active",
+                    sum(r is not None for r in self.slot_req))
+        m.set_gauge("serving_requests_done", len(self.done))
+        m.set_gauge("serving_kv_resident_bytes",
+                    self.pool.resident_bytes() if self.paged else 0)
+        m.set_gauge("serving_host_resident_pages",
+                    self.host_tier.used_pages()
+                    if self.host_tier is not None else 0)
+        return m.snapshot()
 
     def _live(self) -> bool:
         return bool(self.queue or any(r is not None for r in self.slot_req))
@@ -1122,6 +1484,18 @@ class ServingEngine:
             ticks += 1
         self._check_drained(ticks, max_ticks)
         return self.done
+
+    def stream(self, max_ticks: int = 10_000) -> Iterator[RequestOutput]:
+        """Run the tick loop, yielding each ``RequestOutput`` as soon as
+        its tick produced it — tokens are observable while OTHER requests
+        are still prefilling or decoding.  ``submit()`` and ``abort()``
+        may be called from the consuming loop (an abort's terminal output
+        is returned by ``abort`` itself, not re-yielded here)."""
+        ticks = 0
+        while self._live() and ticks < max_ticks:
+            yield from self.step()
+            ticks += 1
+        self._check_drained(ticks, max_ticks)
 
     def generate(self, prompts: Sequence[np.ndarray],
                  sampling: Union[SamplingParams, Sequence[SamplingParams],

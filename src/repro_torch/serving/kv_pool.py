@@ -24,13 +24,19 @@ Two layers:
   carries the prefix cache's sharing queries (``shareable_capacity``,
   ``prefix_pages``, per-run ``attach`` / ``retain`` / ``release_ref``),
   copy-on-write across runs (``cow_deficit``, ``ensure_writable``) and
-  speculative rollback (``truncate``, ``rollback_bound``).  The host spill
-  tier arrives with ROADMAP queue A, item 9.
+  speculative rollback (``truncate``, ``rollback_bound``).
+* ``HostTier`` — the host-memory spill pool behind the device pool: per
+  run, one host tensor per leaf (K/V and, quantized, their scale pages),
+  pinned when the pool lives on the card, with the reference's free-list
+  accounting and swap byte counters.  Pages move in batches
+  (``store_pages`` / ``load_pages``: asynchronous copies on the engine's
+  stream); the engine (``_swap_out``, ``_try_swap_in``, the prefix
+  cache's demote/promote callbacks) decides which.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +44,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.transformer import build_plan, cache_len
+from repro_torch.serving.metrics import MetricsRegistry, counter_attr
 from repro_torch.serving.scheduler import pages_for
 
 
@@ -524,3 +531,174 @@ class KVPool:
 
     def total_bytes(self) -> int:
         return sum(b * self.n_pages for b in self._page_bytes)
+
+
+def _stretches(pages: Sequence[int]) -> List[Tuple[int, int, int]]:
+    """(i, first, n) for each maximal stretch ``pages[i:i+n] == first,
+    first+1, ..``: one copy per stretch of consecutive host pages."""
+    out: List[Tuple[int, int, int]] = []
+    for i, p in enumerate(pages):
+        if out and out[-1][1] + out[-1][2] == p:
+            out[-1] = (out[-1][0], out[-1][1], out[-1][2] + 1)
+        else:
+            out.append((i, int(p), 1))
+    return out
+
+
+class HostTier:
+    """Host-memory spill pool behind the device page pool — the second
+    level of the KV hierarchy (port of the reference's ``HostTier``; HALO
+    reading: capacity memory behind the CiD banks).
+
+    Holds ``n_pages`` host pages PER RUN, each mirroring the run's device
+    page layout (every leaf — K/V and their scale pages — at the same
+    dtype, page axis first: leaf ``[L, n_dev, P, ...]`` -> host ``[n_pages,
+    L, P, ...]``, so one page is one contiguous block), in pinned memory
+    when the pool lives on the card.  Two users:
+
+    * **preemption swap**: the engine copies a victim's device pages here
+      (``ServingEngine._swap_out``) and uploads them back at re-admission;
+    * **prefix demote/promote**: evicted prefix-cache blocks park their
+      page contents here and re-promote to a fresh device page on the next
+      hit (``PrefixCache`` callbacks).
+
+    Batched copies (``store_pages`` / ``load_pages``) run asynchronously
+    on the engine's stream, one copy per stretch of consecutive host
+    pages; device-side copies are stream-ordered, so a store into a page
+    an earlier upload still reads waits its turn.  A store from host
+    memory (``store``, or ``store_pages`` from CPU tensors) first waits for
+    the last upload, so it never overtakes one.
+    """
+
+    # swap byte totals live in the metrics registry (the engine passes its
+    # own, making these attributes views over the same cells counts() and
+    # MetricsRegistry.snapshot() report)
+    swap_out_bytes = counter_attr("serving_swap_out_bytes_total")
+    swap_in_bytes = counter_attr("serving_swap_in_bytes_total")
+
+    def __init__(self, pool: KVPool, n_pages: int, *,
+                 metrics: Optional[MetricsRegistry] = None):
+        if n_pages < 1:
+            raise ValueError(f"HostTier needs n_pages >= 1, got {n_pages}")
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.n_pages = n_pages
+        self.n_runs = len(pool.caches)
+        self._page_bytes = [pool.page_bytes(r) for r in range(self.n_runs)]
+        self.pinned = pool.device.type == "cuda"
+        self._store: List[Dict[str, torch.Tensor]] = [
+            {k: torch.zeros((n_pages, leaf.shape[0]) + tuple(leaf.shape[2:]),
+                            dtype=leaf.dtype, pin_memory=self.pinned)
+             for k, leaf in cache.items()}
+            for cache in pool.caches]
+        self.free: List[List[int]] = [
+            list(range(n_pages - 1, -1, -1)) for _ in range(self.n_runs)]
+        # the last upload that reads the store (a CUDA event), if any
+        self._upload: Optional[Any] = None
+        # byte counters (device->host is "swap out", host->device "swap in")
+        self.swap_out_bytes = 0
+        self.swap_in_bytes = 0
+
+    # -- queries ---------------------------------------------------------------
+    def free_pages(self, run: Optional[int] = None) -> int:
+        """Free host pages of one run, or the binding min across runs."""
+        if run is not None:
+            return len(self.free[run])
+        return min(len(f) for f in self.free)
+
+    def used_pages(self) -> int:
+        """Host pages in use, summed across runs (the residency metric)."""
+        return sum(self.n_pages - len(f) for f in self.free)
+
+    def resident_bytes(self) -> int:
+        return sum((self.n_pages - len(f)) * b
+                   for f, b in zip(self.free, self._page_bytes))
+
+    def host_bytes(self) -> int:
+        """Bytes of host memory the store holds (pinned on the card)."""
+        return sum(t.numel() * t.element_size()
+                   for st in self._store for t in st.values())
+
+    # -- allocation ------------------------------------------------------------
+    def alloc(self, run: int, n: int) -> Optional[List[int]]:
+        """Claim ``n`` host pages of ``run`` — all-or-nothing."""
+        if n > len(self.free[run]):
+            return None
+        return [self.free[run].pop() for _ in range(n)]
+
+    def release(self, run: int, pages: Sequence[int]) -> None:
+        for p in pages:
+            assert 0 <= p < self.n_pages and p not in self.free[run], \
+                f"HostTier.release: page {p} of run {run} is not in use"
+            self.free[run].append(int(p))
+
+    # -- page contents ---------------------------------------------------------
+    def _await_uploads(self) -> None:
+        if self._upload is not None:
+            self._upload.synchronize()
+            self._upload = None
+
+    def store(self, run: int, page: int, data: Dict[str, Any]) -> None:
+        """Copy one page's contents ({leaf: [L, P, ...]}, host or device)
+        into host page ``page`` of ``run``."""
+        self._await_uploads()
+        for k, v in data.items():
+            self._store[run][k][page].copy_(torch.as_tensor(v))
+        self.swap_out_bytes += self._page_bytes[run]
+
+    def load(self, run: int, page: int) -> Dict[str, torch.Tensor]:
+        """Contents of host page ``page`` of ``run`` ({leaf: [L, P, ...]}
+        views — the caller uploads before the page is reused)."""
+        self.swap_in_bytes += self._page_bytes[run]
+        return {k: v[page] for k, v in self._store[run].items()}
+
+    def store_pages(self, run: int, pages: Sequence[int],
+                    data: Dict[str, torch.Tensor]) -> None:
+        """Copy ``len(pages)`` pages ({leaf: [L, n, P, ...]}, the device
+        pages gathered in row order) into host pages ``pages`` of ``run``:
+        asynchronous from the card into pinned memory (the caller syncs
+        once for the batch)."""
+        for k, v in data.items():
+            src = v.movedim(1, 0).contiguous()   # one block per page
+            if src.device.type == "cpu":
+                self._await_uploads()
+            dst = self._store[run][k]
+            for i, first, n in _stretches(pages):
+                dst[first:first + n].copy_(src[i:i + n],
+                                           non_blocking=self.pinned)
+        self.swap_out_bytes += len(pages) * self._page_bytes[run]
+
+    def load_pages(self, run: int, pages: Sequence[int],
+                   device) -> Dict[str, torch.Tensor]:
+        """Host pages ``pages`` of ``run`` on ``device`` ({leaf: [L, n, P,
+        ...]}, row order): asynchronous uploads from pinned memory."""
+        device = torch.device(device)
+        out = {}
+        for k, v in self._store[run].items():
+            dst = torch.empty((len(pages),) + tuple(v.shape[1:]),
+                              dtype=v.dtype, device=device)
+            for i, first, n in _stretches(pages):
+                dst[i:i + n].copy_(v[first:first + n],
+                                   non_blocking=self.pinned)
+            out[k] = dst.movedim(0, 1)
+        if device.type == "cuda":
+            self._upload = torch.cuda.Event()
+            self._upload.record(torch.cuda.current_stream(device))
+        self.swap_in_bytes += len(pages) * self._page_bytes[run]
+        return out
+
+    # -- invariants -------------------------------------------------------------
+    def check_invariants(self) -> None:
+        for r, f in enumerate(self.free):
+            assert len(set(f)) == len(f), f"run {r}: free-list duplicates"
+            assert all(0 <= p < self.n_pages for p in f), \
+                f"run {r}: free list out of range"
+
+    def stats(self) -> Dict[str, Any]:
+        return {
+            "n_pages": self.n_pages,
+            "free_pages": self.free_pages(),
+            "used_pages": self.used_pages(),
+            "resident_bytes": self.resident_bytes(),
+            "swap_out_bytes": self.swap_out_bytes,
+            "swap_in_bytes": self.swap_in_bytes,
+        }

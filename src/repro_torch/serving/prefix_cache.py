@@ -1,5 +1,5 @@
 """Radix prefix cache: shared-prefix KV reuse over the paged pool (port of
-src/repro/serving/prefix_cache.py, without the host tier).
+src/repro/serving/prefix_cache.py).
 
 Requests that share a long system prompt rebuild identical KV pages in
 prefill.  The paged pool's block tables (row -> physical page) are the
@@ -20,19 +20,21 @@ is leaf-first LRU and drops that reference (``release_ref``), freeing the
 page only when no request still shares it — cached pages are reclaimable
 capacity, evicted before any live request is preempted.
 
-The reference can also DEMOTE evicted blocks to a host-memory tier and
-promote them on a later hit; that tier is ROADMAP queue A, item 9, so here
-eviction always drops, and ``stats()`` reports the tier's counters as 0.
+With a host tier (the engine wires ``demote`` / ``promote`` / ``discard``
+callbacks when ``ServeConfig.host_spill_pages > 0``), eviction DEMOTES a
+block — its page contents move to host memory and the node stays in the
+tree — and a later match through it PROMOTES it back onto fresh device
+pages; without one, eviction drops.
 
-Pure host-side indexing: device pages are never touched, only refcounts
-and table rows move.
+Pure host-side indexing: device pages are never touched here, only
+refcounts and table rows move (the callbacks copy page contents).
 """
 
 from __future__ import annotations
 
 import hashlib
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -52,10 +54,18 @@ class _Node:
     pages: List[int]                      # one physical page per run
     children: Dict[bytes, "_Node"] = field(default_factory=dict)
     last_used: int = 0
+    # host-tier residency: a DEMOTED node holds no device pages
+    # (``pages == []``) but parks its KV in host pages, one per run —
+    # promoted back to fresh device pages on the next match through it
+    host_pages: Optional[List[int]] = None
 
     @property
     def is_leaf(self) -> bool:
         return not self.children
+
+    @property
+    def resident(self) -> bool:
+        return bool(self.pages)
 
 
 class PrefixCache:
@@ -69,6 +79,24 @@ class PrefixCache:
       cache reference);
     * ``evict(pool, n_pages)`` — leaf-first LRU release of at least
       ``n_pages`` per-run pages back toward the free lists.
+
+    TIERED EVICTION (``demote``/``promote``/``discard`` callbacks wired
+    by the engine when a ``HostTier`` exists): eviction DEMOTES a block —
+    its page contents move to host memory and the node stays in the tree
+    — instead of dropping it, and a later ``match`` walking through a
+    demoted node PROMOTES it back onto fresh device pages
+    (``PagePool.alloc_external``), preserving the hit.  Demotion is
+    bottom-up (the resident frontier peels first), promotion top-down
+    along the match walk, so a resident node never sits below a demoted
+    ancestor.  Hard-dropping stays the fallback whenever the host tier
+    is full or absent.  Callback contracts:
+
+      demote(device_pages)  -> host page list, or None (tier full);
+                               the cache then releases the device refs
+      promote(host_pages)   -> fresh device page list (external-ref'd,
+                               contents uploaded, host pages freed), or
+                               None (no free device page right now)
+      discard(host_pages)   -> free the host pages (node truly dying)
     """
 
     # hit counters live in the metrics registry (the engine passes its
@@ -78,6 +106,9 @@ class PrefixCache:
     hit_tokens = counter_attr("serving_prefix_hit_tokens_total")
 
     def __init__(self, page_size: int, max_tokens: int, *,
+                 demote: Optional[Callable] = None,
+                 promote: Optional[Callable] = None,
+                 discard: Optional[Callable] = None,
                  metrics: Optional[MetricsRegistry] = None):
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.page_size = page_size
@@ -86,12 +117,17 @@ class PrefixCache:
         self._root = _Node(b"root", None, [])
         self._clock = 0
         self._n_nodes = 0
+        self._demote = demote
+        self._promote = promote
+        self._discard = discard
         # stats (benchmarks / tests)
         self.lookups = 0
         self.hits = 0
         self.hit_tokens = 0
         self.inserted_blocks = 0
         self.evicted_blocks = 0
+        self.demoted_blocks = 0
+        self.promoted_blocks = 0
 
     # -- internals ---------------------------------------------------------------
     def _blocks(self, tokens: np.ndarray) -> List[np.ndarray]:
@@ -107,21 +143,28 @@ class PrefixCache:
             node.last_used = self._clock
             node = node.parent
 
-    def _nodes(self) -> List[_Node]:
-        out, stack = [], list(self._root.children.values())
-        while stack:
-            n = stack.pop()
-            out.append(n)
-            stack.extend(n.children.values())
-        return out
-
     # -- queries -----------------------------------------------------------------
     def __len__(self) -> int:
         return self._n_nodes
 
     def cached_pages(self) -> int:
-        """Total per-run page references the cache currently pins."""
-        return sum(len(n.pages) for n in self._nodes())
+        """Total per-run DEVICE page references the cache currently pins
+        (demoted nodes hold none)."""
+        total, stack = 0, list(self._root.children.values())
+        while stack:
+            n = stack.pop()
+            total += len(n.pages)
+            stack.extend(n.children.values())
+        return total
+
+    def demoted_nodes(self) -> int:
+        """Blocks currently parked in the host tier."""
+        total, stack = 0, list(self._root.children.values())
+        while stack:
+            n = stack.pop()
+            total += n.host_pages is not None
+            stack.extend(n.children.values())
+        return total
 
     def match(self, tokens: np.ndarray, *, max_tokens: Optional[int] = None
               ) -> Tuple[int, List[List[int]]]:
@@ -129,17 +172,29 @@ class PrefixCache:
         per-run page lists aligned with ``KVPool.pools``).  Only whole
         blocks match; ``max_tokens`` additionally caps the walk (the
         engine passes len - 1 so at least one token remains to prefill —
-        logits of the last prompt token seed decoding)."""
+        logits of the last prompt token seed decoding).  A DEMOTED node
+        on the walk is promoted back to device pages first; if no device
+        page is free for it the match stops at the last resident node —
+        a partial hit instead of a lost one."""
         self.lookups += 1
         blocks = self._blocks(tokens)
         if max_tokens is not None:
             blocks = blocks[: max_tokens // self.page_size]
-        node = self._root
+        node, digest = self._root, self._root.digest
         path: List[_Node] = []
         for blk in blocks:
-            child = node.children.get(_block_digest(node.digest, blk))
+            digest = _block_digest(node.digest, blk)
+            child = node.children.get(digest)
             if child is None:
                 break
+            if not child.resident:
+                pages = (self._promote(child.host_pages)
+                         if self._promote is not None else None)
+                if pages is None:
+                    break                 # no device page free: partial hit
+                child.pages = list(pages)
+                child.host_pages = None
+                self.promoted_blocks += 1
             path.append(child)
             node = child
         if not path:
@@ -174,6 +229,18 @@ class PrefixCache:
                 node.children[digest] = child
                 self._n_nodes += 1
                 added += 1
+            elif not child.resident:
+                # re-publish over a demoted node: the slot just prefilled
+                # this very block, so retain ITS page and retire the host
+                # copy — a free promotion (no upload needed)
+                pages = [per_run[r][i] for r in range(len(per_run))]
+                for r, p in enumerate(pages):
+                    pool.retain(r, p)
+                if child.host_pages is not None and self._discard is not None:
+                    self._discard(child.host_pages)
+                child.host_pages = None
+                child.pages = pages
+                self.promoted_blocks += 1
             node = child
         self._touch(node)
         self.inserted_blocks += added
@@ -181,31 +248,62 @@ class PrefixCache:
 
     def evict(self, pool: KVPool, n_pages: int) -> int:
         """Leaf-first LRU eviction of blocks whose pages would actually
-        FREE (cache-only references) until at least ``n_pages`` pages
-        returned to the free lists, or no evictable leaf remains.  Returns
-        pages freed.  Blocks still pinned by a live slot are skipped —
-        evicting them releases nothing now and destroys future hits."""
+        FREE (cache-only references): demote (host tier wired) or drop
+        them until at least ``n_pages`` pages returned to the free lists,
+        or no evictable node remains.  Returns pages freed.  Blocks still
+        pinned by a live slot are skipped — evicting them releases
+        nothing NOW and permanently destroys future hits (one transient
+        exhaustion must not flush the whole cache).  Only the RESIDENT
+        FRONTIER is evictable — a resident node with no resident
+        descendants; its descendants (all demoted) key through it but
+        survive on host — so device chains peel from the tip, bottom-up.
+        """
         freed = 0
         while freed < n_pages:
             # one tree walk per batch, LRU order (a page lives in at most
             # one node, so dropping a leaf never un-frees another's pages;
-            # the outer loop re-collects parents that just became leaves)
+            # the outer loop re-collects parents whose subtree just went
+            # fully demoted)
             leaves = sorted(self._evictable_leaves(pool),
                             key=lambda n: n.last_used)
             if not leaves:
                 break
             for leaf in leaves:
-                freed += self._drop(leaf, pool)
+                freed += (self._demote_node(leaf, pool)
+                          if self._demote is not None
+                          else self._drop(leaf, pool))
                 if freed >= n_pages:
                     break
         return freed
 
+    def _demote_node(self, node: _Node, pool: KVPool) -> int:
+        """Move one block's pages to the host tier (node survives); hard
+        drop if the tier declines.  Returns device pages freed."""
+        host = self._demote(list(node.pages))
+        if host is None:
+            return self._drop(node, pool)           # host tier full
+        freed = 0
+        for r, q in enumerate(node.pages):
+            freed += int(pool.pools[r].ref[q]) == 1  # last reference
+            pool.release_ref(r, q)
+        node.pages = []
+        node.host_pages = list(host)
+        self.demoted_blocks += 1
+        return freed
+
     def _drop(self, node: _Node, pool: KVPool) -> int:
-        """Evict one node AND its subtree; returns how many device pages
-        actually freed (descendants key through its digest)."""
+        """Evict one node AND its subtree terminally; returns how many
+        device pages actually freed.  Descendants (demoted blocks under
+        an evicted frontier node, or whole chains on ``flush``) die with
+        it — they key through its digest, and their host copies are
+        discarded back to the tier."""
         freed = 0
         for child in list(node.children.values()):
             freed += self._drop(child, pool)
+        if node.host_pages is not None:
+            if self._discard is not None:
+                self._discard(node.host_pages)
+            node.host_pages = None
         for r, q in enumerate(node.pages):
             freed += int(pool.pools[r].ref[q]) == 1    # last reference
             pool.release_ref(r, q)
@@ -216,19 +314,22 @@ class PrefixCache:
 
     def _evictable_leaves(self, freeing_in: Optional[KVPool] = None
                           ) -> List[_Node]:
-        """The leaves, in depth-first order over children as inserted (the
-        reference's order, which the LRU sort keeps among equal ages);
-        with ``freeing_in``, only those whose release would free at least
-        one page of that pool."""
+        """The resident frontier: resident nodes with no resident
+        descendants (plain leaves when nothing is demoted).  With
+        ``freeing_in``, only those whose release would free at least one
+        page of that pool."""
         out: List[_Node] = []
 
-        def visit(n: _Node) -> None:
+        def visit(n: _Node) -> bool:
+            sub_resident = False
             for c in n.children.values():
-                visit(c)
-            if n.is_leaf and (freeing_in is None or any(
-                    int(freeing_in.pools[r].ref[q]) == 1
-                    for r, q in enumerate(n.pages))):
-                out.append(n)
+                sub_resident = visit(c) or sub_resident
+            if n.resident and not sub_resident:
+                if freeing_in is None or any(
+                        int(freeing_in.pools[r].ref[q]) == 1
+                        for r, q in enumerate(n.pages)):
+                    out.append(n)
+            return n.resident or sub_resident
 
         for c in self._root.children.values():
             visit(c)
@@ -237,25 +338,24 @@ class PrefixCache:
     def flush(self, pool: KVPool) -> int:
         """Drop EVERY cached block unconditionally (shutdown / tests):
         pinned pages lose their cache reference but free only when their
-        live sharers release too.  Returns device pages freed."""
+        live sharers release too; demoted blocks' host pages are
+        discarded.  Returns device pages freed."""
         freed = 0
         for child in list(self._root.children.values()):
             freed += self._drop(child, pool)
         return freed
 
     def stats(self) -> Dict[str, float]:
-        """The reference's keys; the host tier's (demoted / promoted
-        blocks) are 0 without one."""
         return {
             "nodes": self._n_nodes,
             "cached_pages": self.cached_pages(),
-            "demoted_nodes": 0,
+            "demoted_nodes": self.demoted_nodes(),
             "lookups": self.lookups,
             "hits": self.hits,
             "hit_rate": self.hits / max(self.lookups, 1),
             "hit_tokens": self.hit_tokens,
             "inserted_blocks": self.inserted_blocks,
             "evicted_blocks": self.evicted_blocks,
-            "demoted_blocks": 0,
-            "promoted_blocks": 0,
+            "demoted_blocks": self.demoted_blocks,
+            "promoted_blocks": self.promoted_blocks,
         }

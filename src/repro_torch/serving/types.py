@@ -15,8 +15,8 @@ These dataclasses are the contract between them — pure host types.
 The port keeps every ``ServeConfig`` field of the reference; the engine
 raises ``NotImplementedError`` for the options whose slice has not been
 ported yet.  ``Request`` carries only the fields this slice's engine
-sets: the SLO deadline and priority lane come with the async front-end,
-the host-swap handle with its slice (ROADMAP queue A).
+sets: the SLO deadline and priority lane come with the async front-end
+(ROADMAP queue A, item 10).
 """
 
 from __future__ import annotations
@@ -57,6 +57,9 @@ class Request:
     t_submit: float = 0.0
     t_first_token: float = 0.0
     t_done: float = 0.0
+    # host-tier swap handle (set while the request's KV pages live in the
+    # host spill pool between a swap-out preemption and its swap-in resume)
+    swap: Optional[Any] = None
 
     @property
     def max_new_tokens(self) -> int:

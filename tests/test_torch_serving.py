@@ -1,9 +1,10 @@
 """The port's host-side serving pieces against the JAX package's on the CPU:
 the page pool's accounting and invariants, the scheduler's packing and tick
-plans, the KV pool's device layout, greedy sampling, the executor's compile
-counting, the options this slice refuses, the combinations the reference
-refuses for good (with its errors), and whole-prompt serving with
-``packed_prefill=False``, which the reference serves."""
+plans, the KV pool's device layout, greedy sampling (alone and as the greedy
+rows of a mixed batch), the executor's compile counting, the options the
+port still refuses, the combinations the reference refuses for good (with
+its errors), and whole-prompt serving with ``packed_prefill=False``, which
+the reference serves."""
 
 import dataclasses
 
@@ -146,11 +147,18 @@ def test_kv_pool_layout():
 
 
 def test_greedy_sampling_takes_the_first_maximum():
+    """argmax takes the first maximum, and a greedy row of a mixed batch
+    (``sample_tokens_rows``) is that argmax whatever its neighbours draw."""
     logits = torch.tensor([[[0.0, 3.0, 3.0, 1.0]], [[5.0, 5.0, 0.0, 5.0]]])
     assert sampling.sample_greedy(logits).tolist() == [1, 0]
-    sampling.require_greedy(sampling.SamplingParams())
-    with pytest.raises(NotImplementedError, match="later slice"):
-        sampling.require_greedy(sampling.SamplingParams(temperature=0.7))
+    mixed = torch.cat([logits, logits])[:, -1]            # rows 0, 1 greedy
+    keys = sampling.row_keys(torch.tensor([1, 2, 3, 4]),
+                             torch.tensor([0, 5, 7, 9]))
+    got = sampling.sample_tokens_rows(
+        mixed, torch.tensor([0.0, 0.0, 0.7, 1.3]),
+        torch.tensor([0, 0, 2, 0]), torch.tensor([0.0, 0.0, 0.0, 0.9]), keys)
+    assert got.dtype == torch.int32
+    assert got[:2].tolist() == sampling.sample_greedy(logits).tolist()
 
 
 def test_executor_counts_first_seen_shapes():
@@ -162,8 +170,11 @@ def test_executor_counts_first_seen_shapes():
     assert ex.program("decode", "decode_paged") is len
     with pytest.raises(NotImplementedError):
         ex.program("prefill", "chunk")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make_executor("disaggregated", {})
+    dis = make_executor("disaggregated", {"decode_paged": len},
+                        device="cpu")
+    assert dis.migrates_kv and dis.program("decode", "decode_paged") is len
+    with pytest.raises(ValueError, match="expected 'colocated' or"):
+        make_executor("pipelined", {})
 
 
 def _tiny():
@@ -172,29 +183,50 @@ def _tiny():
     return cfg, init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 
 
-@pytest.mark.parametrize("option", [
-    dict(paged=False, packed_prefill=False),
-    dict(paged=True, speculative=SpecConfig(k=2, drafter="model",
-                                            draft_arch="llama2-7b")),
-    dict(paged=True, prefix_cache=True, host_spill_pages=4),
-    dict(paged=True, speculative=SpecConfig(k=2), greedy=False,
-         temperature=0.7),
-    dict(paged=True, host_spill_pages=4),
-    dict(paged=True, admission=scheduler.AdmissionConfig()),
-    dict(paged=True, greedy=False, temperature=0.7),
-    dict(paged=True, executor="disaggregated")])
-def test_unported_options_raise(option):
+_MODEL_DRAFTER = SpecConfig(k=2, drafter="model", draft_arch="llama2-7b")
+
+
+@pytest.mark.parametrize("option,item", [
+    (dict(paged=False, packed_prefill=False), "item 11"),
+    (dict(paged=True, speculative=_MODEL_DRAFTER), "item 7c"),
+    (dict(paged=True, prefix_cache=True, host_spill_pages=4,
+          admission=scheduler.AdmissionConfig()), "item 10"),
+    (dict(paged=True, speculative=_MODEL_DRAFTER, greedy=False,
+          temperature=0.7), "item 7c"),
+    (dict(paged=True, host_spill_pages=4, speculative=_MODEL_DRAFTER),
+     "item 7c"),
+    (dict(paged=True, admission=scheduler.AdmissionConfig()), "item 10"),
+    (dict(paged=True, greedy=False, temperature=0.7,
+          admission=scheduler.AdmissionConfig()), "item 10"),
+    (dict(paged=True, executor="disaggregated",
+          admission=scheduler.AdmissionConfig()), "item 10")],
+    ids=[f"option{i}" for i in range(8)])
+def test_unported_options_raise(option, item):
+    """What the port still refuses — the dense arena's padded prefill, the
+    draft-model drafter and admission control — raises naming its ROADMAP
+    item, whatever served option comes with it."""
     cfg, params = _tiny()
-    with pytest.raises(NotImplementedError, match="item"):
+    with pytest.raises(NotImplementedError, match=item):
         ServingEngine(cfg, params, ServeConfig(**option), device="cpu")
 
 
 def test_engine_refuses_stochastic_requests():
+    """A negative temperature raises the reference's ValueError; a
+    stochastic request is served, its draws reproducible."""
     cfg, params = _tiny()
-    eng = ServingEngine(cfg, params, ServeConfig(paged=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="stochastic"):
-        eng.submit(np.arange(5, dtype=np.int32),
-                   sampling=sampling.SamplingParams(temperature=1.0))
+    with pytest.raises(ValueError, match="temperature must be >= 0"):
+        sampling.SamplingParams(temperature=-1.0)
+    streams = []
+    for _ in range(2):
+        eng = ServingEngine(cfg, params, ServeConfig(paged=True),
+                            device="cpu")
+        req = eng.submit(np.arange(5, dtype=np.int32),
+                         sampling=sampling.SamplingParams(
+                             temperature=1.0, seed=3, max_new_tokens=6))
+        eng.run_until_drained()
+        assert req.finish_reason == "length" and len(req.generated) == 6
+        streams.append(list(req.generated))
+    assert streams[0] == streams[1]
 
 
 def test_entry_points_never_fall_back_to_the_cpu(monkeypatch):

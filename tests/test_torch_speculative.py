@@ -130,7 +130,8 @@ def test_verify_draft_matches_reference():
     """Greedy acceptance over windows with tied logits (argmax takes the
     first maximum on both sides), every draft length 0..4 and drafts that
     agree for a while and then do not: the same candidate tokens and
-    emission counts."""
+    emission counts.  Stochastic verification without a key raises, as
+    the reference's does."""
     rng = np.random.default_rng(3)
     for _ in range(20):
         logits = rng.integers(0, 4, (6, 5, 9)).astype(np.float32)
@@ -147,7 +148,9 @@ def test_verify_draft_matches_reference():
         for a, b in zip(got, want):
             assert a.dtype == torch.int32
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # stochastic verification needs its randomness source, as the
+    # reference's needs its PRNG key
+    with pytest.raises(ValueError, match="requires a"):
         verify_draft(torch.zeros(1, 2, 3), torch.zeros(1, 1),
                      torch.ones(1), greedy=False)
 
