@@ -156,7 +156,25 @@ Phases, one JSON line each:
    1024 tokens); and ``executor="disaggregated"``: streams equal to
    ``serve``'s, migrated pages and bytes as the reference's formula
    gives, one migration batch per tick with a handoff.
-8. ``serve_prefix_spec`` — the ``serve`` phase's weights and pool with the
+8. ``serve_traffic`` — the same weights behind the async front-end, with
+   SLO-aware admission and the request tracer (ROADMAP A10): ``serve``'s
+   four prompts through ``AsyncEngine`` (a client task each) beside the
+   same round served synchronously on one traced engine — equal greedy
+   streams (and equal to ``serve``'s), tick shapes and B1/B2 launches, and
+   the trace, written to ``build/serve_traffic_trace.json`` and read back,
+   reconciling with ``counts()`` and ``metrics_snapshot()``; then a
+   two-tenant trace from ``synthesize`` (``chat``: interactive lane,
+   prompts of 300–1900 tokens, TTFT 1000 ms and TPOT 150 ms; ``batch``:
+   batch lane, 1000–2000 tokens, no SLO; 64 new tokens each; 6 s of
+   arrivals at 3x the request rate ``serve``'s rounds sustained) replayed
+   in real time on a 256-page pool with a 256-page host tier, with
+   admission off, at a fixed tick cost (the off run's median tick wall)
+   and on the live tick-wall EMA — each run's shed set, deferrals,
+   preemptions, goodput, per-tenant TTFT/TPOT p50 and p99 and tick walls,
+   B1/B2 at 36 x the decode/prefill steps, every page free after it; and
+   the front-end closed with a request swapped out: every request
+   aborted, every device and host page free.
+9. ``serve_prefix_spec`` — the ``serve`` phase's weights and pool with the
    prefix cache and n-gram speculative decoding (k = 4): prompts opening
    with one 1024-token prefix (64 pages) and going on with tails of 876,
    333, 37 and 0 tokens, 64 new tokens each.  The cold round publishes
@@ -184,7 +202,7 @@ Phases, one JSON line each:
    (and cache-off), TPOT, windows, acceptance, tokens per window and per
    verify step, COW copies, peak memory and a ``profile`` line (``"of":
    "serve_prefix_spec"``) of a third, warm round.
-9. ``serve_quantized`` — the same model and prompts with int8 weights and
+10. ``serve_quantized`` — the same model and prompts with int8 weights and
    packed-int4 KV pages (HALO's decode datapath), two rounds: the int8 GEMV
    must launch 7 x n_layers times per decode step (wq, wk, wv, wo and the
    three FFN matmuls), the int4 decode kernel n_layers times per decode
@@ -194,7 +212,7 @@ Phases, one JSON line each:
    GEMV's seven calls also timed with the L2 flushed by a read (clean)
    rather than a write (the ``gemv_clean_l2`` line), and a ``profile``
    line (``"of": "serve_quantized"``) follows as for ``serve``.
-10. ``serve_dense`` — qwen3-8b as in ``serve`` on the DENSE arena
+11. ``serve_dense`` — qwen3-8b as in ``serve`` on the DENSE arena
    (``paged=False``, max_len 8192, max_batch 4) with whole-prompt prefill
    (``prefill_chunk=0``): prompts of 8000, 4096, 2304 and 1000 tokens, 64
    new tokens each, two rounds.  Each round, the flash-attention kernel
@@ -209,7 +227,7 @@ Phases, one JSON line each:
    decoding) and B2 (the first packed launch) are re-checked at those
    inputs as in ``serve``.  TTFT per prompt length, TPOT, decode tokens/s,
    peak memory and a ``profile`` line (``"of": "serve_dense"``).
-11. ``serve_ssm`` — mamba2-2.7b at full width and all 64 layers in bf16
+12. ``serve_ssm`` — mamba2-2.7b at full width and all 64 layers in bf16
    (random seeded weights) on the dense arena (max_len 8448, max_batch 4)
    with whole-prompt prefill: after the 24-token warm-up, prompts of 8192,
    4096, 2048 and 200 tokens, 64 new tokens each, two rounds.  Each round
@@ -220,9 +238,9 @@ Phases, one JSON line each:
    tensor-core route's own bound (``ssd_route_cost``).  TTFT per prompt length, TPOT, decode tokens/s, weight and state
    bytes, peak memory, a ``profile`` line for a round and one for a
    prefill-only pass with B7's share of its device time.
-12. ``preempt`` — the same model cut to 4 layers, with a pool small enough
+13. ``preempt`` — the same model cut to 4 layers, with a pool small enough
    to force preemptions; every request must finish.
-13. ``parity``  — reduced llama2-7b and qwen3-8b in f32, one engine on
+14. ``parity``  — reduced llama2-7b and qwen3-8b in f32, one engine on
    ``cuda`` (kernels) and one on ``cpu`` (plain versions), same weights,
    f32 KV (with and without a forced preemption) and int8 KV on the paged
    pool; with the prefix cache (f32 and int8 KV), speculation (k = 4),
@@ -243,7 +261,7 @@ Phases, one JSON line each:
 In every serve phase each kernel's plain version must be called 0 times:
 on the card nothing falls back to it.  B5, B2, B3, B8 and B7 count their
 launches by route: ``serve``, ``serve_sampling``, ``serve_tier`` (its int8
-round too), ``serve_prefix_spec`` and its int8 round,
+round too), ``serve_traffic``, ``serve_prefix_spec`` and its int8 round,
 ``serve_quantized`` (B3 among them), both ``serve_dense`` rounds and
 ``serve_ssm`` (bf16) must launch only their
 tensor-core route, ``parity`` (f32) only the CUDA-core tile, and ``bench``
@@ -1842,13 +1860,13 @@ def kernel_functions():
             "matmul": gm.matmul}
 
 
-def make_engine(torch, cfg, params, device, **sc_kw):
+def make_engine(torch, cfg, params, device, tracer=None, **sc_kw):
     from repro_torch.serving.engine import ServeConfig, ServingEngine
     from repro_torch.serving.scheduler import PhaseAwareConfig
     phase = sc_kw.pop("phase", PhaseAwareConfig())
     sc_kw.setdefault("paged", True)
     sc = ServeConfig(phase=phase, **sc_kw)
-    return ServingEngine(cfg, params, sc, device=device)
+    return ServingEngine(cfg, params, sc, device=device, tracer=tracer)
 
 
 def median(xs):
@@ -2108,6 +2126,7 @@ def serve_phase(torch, timer, shared):
                    if t.decode_reqs and not t.prefill_reqs]
     shared.update(cfg=cfg, params=params,
                   streams=[[int(t) for t in r.generated] for r in last],
+                  round_wall_s=median([r["wall_s"] for r in rounds]),
                   tpot_ms_median=median([r["tpot_ms_median"]
                                          for r in rounds]),
                   decode_tick_ms_median=median(decode_only))
@@ -3055,12 +3074,14 @@ def mixed_sampling(n, seed0=100, **stochastic):
             for i in range(n)]
 
 
-def counted_round(torch, eng, prompts, sampling, n_layers, keep=None):
+def counted_round(torch, eng, prompts, sampling, n_layers, keep=None,
+                  serve=None):
     """One counted round: every kernel's count and route count set to 0,
-    ``prompts`` served under the probe, then the checks every round
-    passes — each request finished its 64 tokens, no NaN logit, no plain
-    version called, and (without speculation) one decode step in each
-    tick that decoded."""
+    ``prompts`` served under the probe (by ``eng.generate``, or by
+    ``serve(eng, prompts, sampling)`` returning the requests), then the
+    checks every round passes — each request finished its 64 tokens, no
+    NaN logit, no plain version called, and (without speculation) one
+    decode step in each tick that decoded."""
     fns = kernel_functions()
     for fn in fns.values():
         fn.launches = 0
@@ -3068,7 +3089,8 @@ def counted_round(torch, eng, prompts, sampling, n_layers, keep=None):
     n0 = eng.n_ticks
     with MainPathProbe(torch, n_layers, eng, keep=keep) as probe:
         t0 = time.monotonic()
-        reqs = eng.generate(prompts, sampling)
+        reqs = (serve(eng, prompts, sampling) if serve
+                else eng.generate(prompts, sampling))
         torch.cuda.synchronize()
         wall_s = time.monotonic() - t0
     launches = {name: fn.launches for name, fn in fns.items()}
@@ -3679,6 +3701,312 @@ def serve_tier_phase(torch, timer, shared):
     emit("serve_tier", model=cfg.name, n_layers=L, dtype=cfg.dtype, **out)
 
 
+TRAFFIC_SEED = 12         # serve_traffic: the trace's seed
+TRAFFIC_S = 6.0           # serve_traffic: seconds of arrivals (~25)
+TRAFFIC_LOAD = 3.0        # arrivals over the request rate `serve` sustains
+# serve_traffic's pool (pages of 16) with a TIER_HOST_PAGES host tier: the
+# replay preempts (swaps) on it, and it is clear of the preemption livelock
+# that serve_tier's 184 pages fall into under this trace, in both packages
+# (ROADMAP queue C)
+TRAFFIC_PAGES = 256
+CHAT_SLO_MS = (1000.0, 150.0)   # the chat tenant's TTFT and TPOT deadlines
+
+
+def async_generate(eng, prompts, sampling):
+    """``eng.generate`` through ``AsyncEngine``: one client task a prompt,
+    each consuming its stream; the streamed outputs must reassemble to each
+    request's tokens.  Returns the requests in submission order."""
+    import asyncio
+
+    from repro_torch.serving.frontend import AsyncEngine
+
+    async def go():
+        async with AsyncEngine(eng) as fe:
+            async def client(p, sp):
+                h = await fe.submit(p, sampling=sp)
+                outs = [o async for o in h]
+                if [t for o in outs for t in o.new_token_ids] != \
+                        h.token_ids() or not outs[-1].finished:
+                    raise AssertionError(f"request {h.req_id}: the stream "
+                                         "does not reassemble its tokens")
+                return h.request
+
+            return await asyncio.gather(*[client(p, sp) for p, sp in
+                                          zip(prompts, sampling)])
+
+    return asyncio.run(go())
+
+
+def require_free(phase, eng):
+    """Every page of every run's pool back on its free list, and the host
+    tier empty."""
+    for p in eng.pool.pools:
+        p.check_invariants()
+        if p.free_pages() != p.n_pages:
+            raise AssertionError(f"{phase}: {p.n_pages - p.free_pages()} "
+                                 "pool pages still held")
+    if eng.host_tier is not None and eng.host_tier.used_pages():
+        raise AssertionError(f"{phase}: {eng.host_tier.used_pages()} host "
+                             "pages still held")
+
+
+def reconcile_trace(eng, doc):
+    """The trace (as written to disk and read back) against the engine's
+    registry: one tick span a tick, the tick spans' args summing to the
+    lifetime counters, the prefill spans to the prefill tokens, the decode
+    spans to the decode tokens, one envelope a request, and the latency
+    histograms one sample a retired request.  Returns each check's
+    (trace, registry) pair and the spans' median durations; raises on a
+    mismatch."""
+    evs = doc["traceEvents"]
+    ticks = [e for e in evs if e.get("cat") == "tick"]
+    by = {}
+    for e in evs:
+        if e.get("cat") == "phase":
+            by.setdefault(e["name"], []).append(e)
+    snap = eng.metrics_snapshot()
+    cnt, hist = snap["counters"], snap["histograms"]
+    c = eng.counts()
+    tick_sum = lambda k: sum(t["args"][k] for t in ticks)   # noqa: E731
+    checks = {
+        "ticks": (len(ticks), cnt["serving_ticks_total"]),
+        "tick_walls": (len(ticks),
+                       hist["serving_tick_wall_seconds"]["count"]),
+        "prefill_tokens": (sum(s["args"]["take"]
+                               for s in by.get("prefill_chunk", [])),
+                           cnt["serving_prefill_tokens_total"]),
+        "tick_prefill_tokens": (tick_sum("prefill_tokens"),
+                                cnt["serving_prefill_tokens_total"]),
+        "decode_tokens": (sum(s["args"]["tokens"]
+                              for s in by.get("decode", [])),
+                          cnt["serving_decode_tokens_total"]),
+        "preemptions": (tick_sum("preemptions"), eng.preemptions),
+        "swap_out_bytes": (tick_sum("swap_out_bytes"), c["swap_out_bytes"]),
+        "requests_opened": (sum(e["ph"] == "b" for e in evs), len(eng.done)),
+        "requests_closed": (sum(e["ph"] == "e" for e in evs),
+                            snap["gauges"]["serving_requests_done"]),
+        "first_tokens": (sum(e["ph"] == "i" and e["name"] == "first_token"
+                             for e in evs),
+                         hist["serving_ttft_seconds"]["count"]),
+    }
+    bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+    if bad:
+        raise AssertionError(f"the trace disagrees with the registry: {bad}")
+    spans_ms = {name: median([s["dur"] / 1e3 for s in ss])
+                for name, ss in sorted(by.items())}
+    spans_ms["tick"] = median([t["dur"] / 1e3 for t in ticks])
+    return dict(checks=checks, span_ms_median=spans_ms,
+                events=len(evs))
+
+
+def traffic_row(rep, eng, log, wall_s, tick_cost_s):
+    """One replay's numbers: the report's counts and goodput, TTFT and
+    TPOT p50 / p99 of each tenant's served requests, the shed requests
+    (index in the trace, tenant), and the tick walls the run saw."""
+    from repro_torch.serving.metrics import quantile
+    tenants = {}
+    for r in rep.results:
+        tenants.setdefault(r.tenant, []).append(r)
+    walls = [t.wall_s * 1e3 for t in log]
+    first = min(r.req_id for r in rep.results)
+    return dict(
+        tick_cost_s=tick_cost_s, requests=rep.n_requests,
+        n_served=rep.n_served, n_shed=rep.n_shed,
+        n_deferred=rep.n_deferred, n_preemptions=rep.n_preemptions,
+        swap_resumes=eng.swap_resumes,
+        recompute_preemptions=eng.recompute_preemptions,
+        slo_total=rep.slo_total, slo_attained=rep.slo_attained,
+        goodput=rep.goodput, wall_s=wall_s, ticks=len(log),
+        tick_ms=dict(p50=quantile(walls, 0.5), p90=quantile(walls, 0.9),
+                     p99=quantile(walls, 0.99), max=max(walls)),
+        shed=[(r.req_id - first, r.tenant) for r in rep.results
+              if r.finish_reason == "shed"],
+        tenants={name: dict(
+            requests=len(rs), served=sum(r.served for r in rs),
+            shed=sum(r.finish_reason == "shed" for r in rs),
+            ttft_ms_p50=quantile([r.ttft_s * 1e3 for r in rs if r.served],
+                                 0.5),
+            ttft_ms_p99=quantile([r.ttft_s * 1e3 for r in rs if r.served],
+                                 0.99),
+            tpot_ms_p50=quantile([r.tpot_s * 1e3 for r in rs if r.served],
+                                 0.5),
+            tpot_ms_p99=quantile([r.tpot_s * 1e3 for r in rs if r.served],
+                                 0.99))
+            for name, rs in sorted(tenants.items())})
+
+
+def serve_traffic_phase(torch, timer, shared):
+    """``serve``'s weights behind the async front-end, with SLO-aware
+    admission and the request tracer (ROADMAP A10).  (1) ``serve``'s four
+    prompts through ``AsyncEngine`` (one client task each) beside the same
+    round served synchronously on the same engine: the greedy streams equal
+    each other and ``serve``'s, with the same tick log and B1/B2 launch
+    counts; the engine is traced throughout, and its trace, written to
+    ``build/`` and read back, reconciles with ``counts()`` and
+    ``metrics_snapshot()``.  (2) A two-tenant trace from ``synthesize``
+    (seed ``TRAFFIC_SEED``): ``chat`` in the interactive lane, prompts of
+    300–1900 tokens under an SLO of TTFT 1000 ms and TPOT 150 ms, and
+    ``batch`` in the batch lane, prompts of 1000–2000 tokens and no SLO,
+    64 new tokens each, arriving for ``TRAFFIC_S`` s at ``TRAFFIC_LOAD``
+    times the request rate ``serve``'s rounds sustained (two thirds of it
+    chat), replayed in real time through ``AsyncEngine`` on a
+    ``TRAFFIC_PAGES``-page pool with ``serve_tier``'s 256-page host tier:
+    admission off,
+    admission on at a fixed ``tick_cost_s`` (the off run's median tick
+    wall), and admission on the live tick-wall EMA.  Each run: B2 36 x the
+    prefill steps, B1 36 x the decode steps, every pool and host page free
+    after it.  (3) Four copies of ``serve``'s 1900-token prompt on that
+    pool, and the front-end closed as soon as a request's pages sit in the
+    host tier: every request aborted, every device and host page free."""
+    import asyncio
+
+    from repro_torch.serving.frontend import AsyncEngine
+    from repro_torch.serving.metrics import SLO
+    from repro_torch.serving.sampling import SamplingParams
+    from repro_torch.serving.scheduler import (PRIORITY_BATCH,
+                                               PRIORITY_INTERACTIVE,
+                                               AdmissionConfig)
+    from repro_torch.serving.tracing import Tracer
+    from repro_torch.serving.traffic import (TenantSpec, TrafficConfig,
+                                             replay, synthesize)
+
+    cfg, params = shared["cfg"], shared["params"]
+    L = cfg.n_layers
+    prompts = serve_prompts(cfg)
+    two = SamplingParams(max_new_tokens=2)
+    sp = [SamplingParams(max_new_tokens=64)] * 4
+    out = {}
+
+    # (1) async against sync on one traced engine
+    tracer = Tracer()
+    eng = make_engine(torch, cfg, params, DEV, tracer=tracer, max_batch=4,
+                      page_size=PAGE, n_pages=1024)
+    eng.generate([prompts[0]], two)
+    rnds = {}
+    for label, serve in (("sync", None), ("async", async_generate)):
+        rnds[label] = counted_round(torch, eng, prompts[1:], sp, L,
+                                    serve=serve)
+        require_paged_launches(f"serve_traffic {label}", rnds[label], L)
+    sync, asy = rnds["sync"], rnds["async"]
+
+    def shape(log):     # the rounds' request ids differ, their ticks not
+        return [(len(t.prefill_reqs), len(t.decode_reqs), t.prefill_tokens,
+                 t.preemptions) for t in log]
+
+    path = ROOT / "build" / "serve_traffic_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    tracer.write(str(path))
+    with open(path) as f:
+        trace = reconcile_trace(eng, json.load(f))
+    out["identity"] = dict(
+        sync=sync["row"], async_=asy["row"],
+        streams_equal_serve=asy["streams"] == shared["streams"],
+        launches=asy["launches"], trace=trace,
+        trace_bytes=path.stat().st_size)
+    if (asy["streams"] != sync["streams"]
+            or sync["streams"] != shared["streams"]
+            or asy["launches"] != sync["launches"]
+            or shape(asy["log"]) != shape(sync["log"])):
+        raise AssertionError(f"serve_traffic: async round differs from the "
+                             f"sync one: {out['identity']}")
+    require_free("serve_traffic identity", eng)
+    del eng, tracer, rnds, sync, asy
+    free_device_memory(torch)
+
+    # (2) the two-tenant trace, three ways
+    rate = TRAFFIC_LOAD * 4 / shared["round_wall_s"]
+    events = synthesize(TrafficConfig(tenants=(
+        TenantSpec(name="chat", rate_rps=rate * 2 / 3,
+                   prompt_len=(300, 1900), output_len=(64, 64),
+                   priority=PRIORITY_INTERACTIVE, slo=SLO(*CHAT_SLO_MS)),
+        TenantSpec(name="batch", rate_rps=rate / 3,
+                   prompt_len=(1000, 2000), output_len=(64, 64),
+                   priority=PRIORITY_BATCH)),
+        duration_s=TRAFFIC_S, seed=TRAFFIC_SEED, vocab_size=cfg.vocab_size))
+    out["trace"] = dict(rate_rps=rate, events=len(events),
+                        chat=sum(e.tenant == "chat" for e in events),
+                        prompt_tokens=sum(len(e.prompt) for e in events))
+
+    def run(label, admission, eng=None):
+        if eng is None:
+            eng = make_engine(torch, cfg, params, DEV, max_batch=4,
+                              page_size=PAGE, n_pages=TRAFFIC_PAGES,
+                              host_spill_pages=TIER_HOST_PAGES,
+                              admission=admission)
+            eng.generate([prompts[0]], two)
+        fns = kernel_functions()
+        for fn in fns.values():
+            fn.launches = 0
+        reset_routes()
+        n0 = eng.n_ticks
+
+        async def go():
+            async with AsyncEngine(eng) as fe:
+                return await replay(fe, events, time_scale=1.0)
+
+        with MainPathProbe(torch, L, eng) as probe:
+            t0 = time.monotonic()
+            rep = asyncio.run(go())
+            torch.cuda.synchronize()
+            wall_s = time.monotonic() - t0
+        log = list(eng.tick_log)[-(eng.n_ticks - n0):]
+        rnd = dict(probe=probe, log=log, launches={
+            name: fn.launches for name, fn in fns.items()})
+        probe.routes = route_counts()
+        if bool(probe.nan) or probe.plain_calls:
+            raise AssertionError(f"serve_traffic {label}: NaN "
+                                 f"{bool(probe.nan)}, plain calls "
+                                 f"{probe.plain_calls}")
+        require_paged_launches(f"serve_traffic {label}", rnd, L)
+        if any(r.served and r.n_tokens != 64 for r in rep.results):
+            raise AssertionError(f"serve_traffic {label}: a served request "
+                                 "did not finish its 64 tokens")
+        require_free(f"serve_traffic {label}", eng)
+        cost = (admission.tick_cost_s if admission is not None
+                and admission.tick_cost_s is not None else
+                ("ema" if admission is not None else None))
+        row = traffic_row(rep, eng, log, wall_s, cost)
+        row.update(launches=rnd["launches"],
+                   prefill_steps=probe.steps["prefill"],
+                   decode_steps=probe.steps["decode"])
+        if admission is not None and admission.tick_cost_s is None:
+            row["tick_wall_ema_ms_end"] = eng.tick_wall_ema * 1e3
+        return row, eng
+
+    out["off"], eng_off = run("off", None)
+    tick_cost = out["off"]["tick_ms"]["p50"] / 1e3
+    out["fixed"], _ = run("fixed", AdmissionConfig(tick_cost_s=tick_cost))
+    free_device_memory(torch)
+    out["ema"], _ = run("ema", AdmissionConfig())
+    free_device_memory(torch)
+
+    # (3) close the front-end with a request swapped out to the host tier
+    async def close_with_swapped():
+        async with AsyncEngine(eng_off) as fe:
+            handles = [await fe.submit(prompts[1], max_new_tokens=64)
+                       for _ in range(4)]
+            for _ in range(100_000):
+                if eng_off.host_tier.used_pages():
+                    break
+                await asyncio.sleep(0)
+            held = eng_off.host_tier.used_pages()
+            return handles, held
+
+    handles, held = asyncio.run(close_with_swapped())
+    out["aclose"] = dict(host_pages_held_at_close=held,
+                         reasons=[h.finish_reason for h in handles],
+                         host_resident_pages=eng_off.counts()[
+                             "host_resident_pages"])
+    if not held or any(h.finish_reason != "abort" for h in handles):
+        raise AssertionError(f"serve_traffic aclose: {out['aclose']}")
+    require_free("serve_traffic aclose", eng_off)
+    del eng_off
+    free_device_memory(torch)
+    emit("serve_traffic", model=cfg.name, n_layers=L, dtype=cfg.dtype,
+         n_pages=TRAFFIC_PAGES, host_spill_pages=TIER_HOST_PAGES,
+         chat_slo_ms=CHAT_SLO_MS, **out)
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -3757,8 +4085,9 @@ def main() -> int:
     if "streams" in shared:
         run("serve_sampling", serve_sampling_phase, torch, timer, shared)
         run("serve_tier", serve_tier_phase, torch, timer, shared)
+        run("serve_traffic", serve_traffic_phase, torch, timer, shared)
     else:
-        failed += ["serve_sampling", "serve_tier"]
+        failed += ["serve_sampling", "serve_tier", "serve_traffic"]
     run("serve_prefix_spec", serve_prefix_spec_phase, torch, timer, shared)
     shared.clear()
     main_quantized = run("serve_quantized", serve_quantized_phase, torch,

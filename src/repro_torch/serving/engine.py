@@ -87,6 +87,21 @@ decode programs to separate device groups and prices every prefill ->
 decode handoff as KV crossing the 2.5D link (``_record_handoff``).  With
 one card both groups are that card, and streams equal the colocated ones.
 
+SLO-AWARE ADMISSION (``admission=AdmissionConfig(...)``): ``submit(...,
+slo=SLO(...), priority=PRIORITY_*)`` attaches TTFT/TPOT deadlines and a
+scheduling lane.  Slots and the prefill budget go by (priority, TTFT
+deadline, age); the ``AdmissionController`` refuses at submit a request
+whose projected TTFT (the backlog in ticks times a fixed ``tick_cost_s``
+or the live tick-wall EMA) busts its deadline — finish reason "shed" — and
+parks best-effort requests over ``max_pending_tokens`` in ``deferred``
+until the backlog drains.  Deadline-carrying requests count into the
+``serving_slo_*`` counters at retirement (shed ones un-attained, aborted
+ones not at all), which ``goodput()`` reads.  A ``Tracer`` passed at
+construction records every request's lifecycle and every tick as Chrome
+trace events (``serving/tracing.py``); disabled (the default) it reads no
+clock and the engine's device work is unchanged.  ``serving/frontend.py``
+(``AsyncEngine``) serves concurrent asyncio clients over one engine.
+
 The host logic (admission, planning, packing, preemption, swapping,
 retirement, counters) is the reference's, line for line where the slice
 reaches it, so the tick log of this engine equals the reference engine's
@@ -96,6 +111,7 @@ on the same traffic.  ``ServeConfig`` options outside the slice raise
 
 from __future__ import annotations
 
+import math
 import time
 import warnings
 from collections import deque
@@ -121,18 +137,21 @@ from repro_torch.serving.executor import make_executor
 from repro_torch.serving.kv_pool import HostTier, KVPool
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.quantized_weights import quantize_params
-from repro_torch.serving.metrics import (MetricsRegistry, counter_attr,
-                                         gauge_attr)
+from repro_torch.serving.metrics import (SLO, MetricsRegistry,
+                                         counter_attr, gauge_attr,
+                                         slo_attainment)
 from repro_torch.serving.sampling import (SamplingParams, row_keys,
                                           sample_greedy, sample_tokens_rows,
                                           verify_draft, verify_draft_rows)
 from repro_torch.serving.scheduler import (
+    AdmissionController,
     PhaseScheduler,
     TickPlan,
     bucket_pow2 as _bucket,
     pack_chunks,
 )
 from repro_torch.serving.speculative import build_drafter
+from repro_torch.serving.tracing import Tracer
 from repro_torch.serving.types import (                      # noqa: F401
     Request,
     RequestOutput,
@@ -197,7 +216,6 @@ def _unported(sc: ServeConfig, chunked: bool) -> Optional[str]:
          "prefill batch): item 11"),
         (sc.speculative is not None and sc.speculative.drafter == "model",
          "speculative drafter='model' (a draft model): item 7c"),
-        (sc.admission is not None, "admission control: item 10"),
     ]
     for hit, what in checks:
         if hit:
@@ -226,6 +244,8 @@ class ServingEngine:
     # same registry.
     host_transfers = counter_attr("serving_host_transfers_total")
     aborted = counter_attr("serving_aborted_total")
+    admission_shed = counter_attr("serving_admission_shed_total")
+    admission_deferred = counter_attr("serving_admission_deferred_total")
     preemptions = counter_attr("serving_preemptions_total")
     swap_outs = counter_attr("serving_swap_outs_total")
     swap_resumes = counter_attr("serving_swap_resumes_total")
@@ -254,9 +274,11 @@ class ServingEngine:
                         "serving_swap_in_bytes_total")
 
     def __init__(self, cfg: ModelConfig, params: Any, sc: ServeConfig,
-                 *, device=None):
+                 *, device=None, tracer: Optional[Tracer] = None):
         """``params`` must already live on ``device`` (``cuda`` unless the
-        caller passes another, e.g. ``device="cpu"``)."""
+        caller passes another, e.g. ``device="cpu"``).  Pass
+        ``tracer=Tracer()`` to record the Chrome trace timeline (off by
+        default)."""
         _refused(cfg, sc)
         chunked = supports_chunked_prefill(cfg) and sc.phase.prefill_chunk > 0
         what = _unported(sc, chunked)
@@ -268,6 +290,7 @@ class ServingEngine:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"engine runs on {self.device}")
         self.metrics = MetricsRegistry()
+        self.tracer = tracer if tracer is not None else Tracer(enabled=False)
         self.cfg = cfg
         if sc.weights_dtype == "int8":
             # serving quantizes EVERY matmul leaf (min_size=0): HALO's CiD
@@ -338,6 +361,18 @@ class ServingEngine:
         self.slot_req: List[Optional[Request]] = [None] * B
         self.queue: List[Request] = []
         self.done: List[Request] = []
+        # admission control (ServeConfig.admission): submit() consults the
+        # controller against the live backlog — shed requests retire
+        # immediately (finish_reason "shed"), deferred ones park here and
+        # are reconsidered at every step() until the backlog has room
+        self.admission: Optional[AdmissionController] = (
+            AdmissionController(sc.admission, sc.phase)
+            if sc.admission is not None else None)
+        self.deferred: List[Request] = []
+        # live seconds-per-tick estimate (EMA over TickRecord.wall_s) the
+        # controller projects TTFT with when no fixed tick_cost_s is set
+        self._tick_wall_ema = 0.0
+        self._tick_wall_n = 0
         # bounded record of recent ticks; occupancy uses running counters
         self.tick_log: Deque[TickRecord] = deque(maxlen=65_536)
         # baseline for TickRecord's registry deltas, carried ACROSS ticks
@@ -348,6 +383,8 @@ class ServingEngine:
         self._n_mixed_ticks = 0
         self.host_transfers = 0          # device->host syncs (see _to_host)
         self.aborted = 0                 # requests cancelled via abort()
+        self.admission_shed = 0          # submits refused by admission
+        self.admission_deferred = 0      # submits parked by the backlog cap
         self.preemptions = 0             # lifetime pool evictions
         self.kv_resident_peak = 0        # peak allocated KV bytes
         # tiered-KV counters: how preemptions resumed (swap vs recompute)
@@ -387,7 +424,12 @@ class ServingEngine:
 
     def _note_compile(self, group: str, kind: str, shape: Tuple[int, ...],
                       all_greedy: bool) -> None:
+        before = self.executor.compile_count
         self.executor.note_compile(group, kind, shape, all_greedy)
+        if self.tracer.enabled and self.executor.compile_count > before:
+            self.tracer.instant("compile", self.tracer.now(), group=group,
+                                kind=kind, shape=list(shape),
+                                all_greedy=bool(all_greedy))
 
     # -- phase programs ---------------------------------------------------------
     def _sample(self, logits, temps, top_ks, top_ps, seeds, counters,
@@ -503,13 +545,26 @@ class ServingEngine:
     # -- public API -----------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: Optional[int] = None,
                eos_id: Optional[int] = None, *,
-               sampling: Optional[SamplingParams] = None) -> Request:
+               sampling: Optional[SamplingParams] = None,
+               slo: Optional[SLO] = None,
+               priority: Optional[int] = None) -> Request:
         """Queue one request.
 
         ``sampling`` carries the per-request parameters (temperature 0 is
         greedy); omitted, the ``ServeConfig`` defaults apply.
         ``max_new_tokens`` / ``eos_id`` override the corresponding
-        ``sampling`` fields when given."""
+        ``sampling`` fields when given.  ``slo`` attaches TTFT/TPOT
+        deadlines (``SLO``, milliseconds): the request counts into the
+        ``serving_slo_*`` attainment counters at retirement, and its TTFT
+        deadline steers prefill ordering (EDF within a priority class) and,
+        with ``ServeConfig.admission`` set, the admission decision.
+        ``priority`` is a ``scheduler.PRIORITY_*`` lane (default STANDARD):
+        slot admission and the prefill budget serve lower values first.
+
+        With admission control on, the returned ``Request`` may come back
+        ALREADY RETIRED (``finish_reason == "shed"``) or parked in
+        ``self.deferred`` (a best-effort request over the pending-token
+        cap; it joins the queue once the backlog drains)."""
         sp = sampling if sampling is not None else self._default_sampling
         if max_new_tokens is not None:
             sp = replace(sp, max_new_tokens=max_new_tokens)
@@ -531,15 +586,121 @@ class ServingEngine:
             raise ValueError(
                 f"prompt of {req.prompt_len} tokens does not fit "
                 f"max_len={self.sc.max_len} (need >= 1 decode position)")
+        if slo is not None and not isinstance(slo, SLO):
+            raise TypeError(f"slo={slo!r} (expected repro_torch.serving."
+                            "metrics.SLO)")
+        req.slo = slo
+        if priority is not None:
+            req.priority = int(priority)
         req.t_submit = time.monotonic()
         self._next_id += 1
+        if self.tracer.enabled:
+            self.tracer.begin_request(req.req_id, req.t_submit,
+                                      prompt_len=req.prompt_len)
+        if self.admission is not None:
+            decision = self.admission.decide(
+                req.prompt_len,
+                ttft_deadline_s=(slo.ttft_ms / 1e3
+                                 if slo is not None and slo.ttft_ms is not None
+                                 else math.inf),
+                backlog_tokens=self._pending_prefill_tokens(),
+                decode_backlog_tokens=self._pending_decode_tokens(),
+                n_live=(len(self.queue) + len(self.deferred)
+                        + sum(r is not None for r in self.slot_req)),
+                ema_value=self._tick_wall_ema,
+                ema_ticks=self._tick_wall_n)
+            if decision == "shed":
+                return self._shed(req)
+            if decision == "defer":
+                self.admission_deferred += 1
+                self.deferred.append(req)
+                return req
         self.queue.append(req)
         return req
+
+    def _shed(self, req: Request) -> Request:
+        """Refuse ``req`` at admission: retired immediately with
+        finish_reason "shed" (it never holds a slot or a page).  Unlike an
+        abort (the client's choice, excluded from goodput), a shed
+        deadline-carrying request counts into ``serving_slo_requests_total``
+        un-attained (its NaN TTFT fails the bound), so ``goodput()`` is
+        measured over ALL submitted SLO demand."""
+        self.admission_shed += 1
+        req.state = RequestState.DONE
+        req.finish_reason = "shed"
+        req.t_done = time.monotonic()
+        self._account_latency(req)
+        if self.tracer.enabled:
+            self.tracer.end_request(req.req_id, req.t_done, reason="shed",
+                                    generated=0)
+        self.done.append(req)
+        return req
+
+    def _pending_prefill_tokens(self, include_deferred: bool = True) -> int:
+        """Queued-but-uncomputed prefill tokens: the backlog a new prompt
+        must wait behind — the admission controller's projection input
+        and the structural ``max_pending_tokens`` cap's measure."""
+        pend = sum(max(r.prompt_len - r.prefill_pos, 0) for r in self.queue)
+        if include_deferred:
+            pend += sum(max(r.prompt_len - r.prefill_pos, 0)
+                        for r in self.deferred)
+        pend += sum(max(self._effective_len(r) - r.prefill_pos, 0)
+                    for r in self.slot_req
+                    if r is not None and r.state == RequestState.PREFILLING)
+        return pend
+
+    def _pending_decode_tokens(self, include_deferred: bool = True) -> int:
+        """Remaining generation budget over every live request — the
+        decode-side queueing a new prompt waits behind (drains at
+        ``max_decode_batch`` tokens per tick)."""
+        rem = sum(max(r.max_new_tokens - len(r.generated), 0)
+                  for r in self.queue)
+        if include_deferred:
+            rem += sum(max(r.max_new_tokens - len(r.generated), 0)
+                       for r in self.deferred)
+        rem += sum(max(r.max_new_tokens - len(r.generated), 0)
+                   for r in self.slot_req if r is not None)
+        return rem
+
+    def _reconsider_deferred(self) -> None:
+        """Re-evaluate deferred requests against the current backlog;
+        admitted ones join the queue tail in deferral order.  Deferral is
+        only structural (a best-effort request over the pending-token cap),
+        so every deferred request re-enters as soon as enough backlog
+        drains: no starvation."""
+        if not self.deferred or self.admission is None:
+            return
+        backlog = self._pending_prefill_tokens(include_deferred=False)
+        n_live = (len(self.queue)
+                  + sum(r is not None for r in self.slot_req))
+        still = []
+        for req in self.deferred:
+            # decode backlog omitted: a best-effort request has no deadline
+            # to project against
+            decision = self.admission.decide(
+                req.prompt_len, ttft_deadline_s=math.inf,
+                backlog_tokens=backlog, n_live=n_live,
+                ema_value=self._tick_wall_ema, ema_ticks=self._tick_wall_n)
+            if decision == "admit":
+                self.queue.append(req)
+                backlog += max(req.prompt_len - req.prefill_pos, 0)
+                n_live += 1
+            else:
+                still.append(req)
+        self.deferred = still
+
+    @property
+    def tick_wall_ema(self) -> float:
+        """EMA of ``TickRecord.wall_s`` over ticks that compiled nothing
+        (0.0 until the first such tick) — the live tick-cost estimate
+        admission projections use."""
+        return self._tick_wall_ema
 
     def abort(self, req_id: int) -> Optional[RequestOutput]:
         """Cancel a request at ANY lifecycle stage.
 
-        WAITING: dequeued (a swapped-out request's host pages are freed).
+        WAITING: dequeued (a swapped-out request's host pages are freed);
+        deferred by admission: removed from ``deferred``.
         PREFILLING / DECODING (speculative verify state included): its slot
         is vacated — its pool references (owned and prefix-cache-attached
         pages) and drafter state are released; pages the prefix cache
@@ -555,6 +716,13 @@ class ServingEngine:
                         self.host_tier.release(r_idx, host_pages)
                     req.swap = None
                 break
+        if req is None:
+            # deferred (admission-parked) requests hold no slot, pages or
+            # swap state — cancellation is pure list removal
+            for i, r in enumerate(self.deferred):
+                if r.req_id == req_id:
+                    req = self.deferred.pop(i)
+                    break
         if req is None:
             for r in self.slot_req:
                 if r is not None and r.req_id == req_id:
@@ -573,6 +741,11 @@ class ServingEngine:
         req.state = RequestState.DONE
         req.finish_reason = "abort"
         req.t_done = time.monotonic()
+        # aborts are client cancellations, not serving failures: they are
+        # EXCLUDED from SLO attainment
+        if self.tracer.enabled:
+            self.tracer.end_request(req.req_id, req.t_done, reason="abort",
+                                    generated=len(req.generated))
         self.done.append(req)
         return RequestOutput(req_id=req.req_id, new_token_ids=[],
                              n_generated=len(req.generated), finished=True,
@@ -615,8 +788,11 @@ class ServingEngine:
     def _admit(self) -> List[Request]:
         admitted = []
         free = self._free_slots()
-        # the queue is age-ordered (submit appends, _preempt inserts by
-        # req_id), so slots go FIFO
+        # SLO-aware slot order: (class, TTFT deadline, age) — stable, and
+        # for all-default submissions exactly FIFO by req_id
+        if self.queue:
+            self.queue.sort(
+                key=lambda r: (r.priority, r.ttft_deadline_s, r.req_id))
         while free and self.queue:
             req = self.queue[0]
             if req.swap is not None:
@@ -637,6 +813,13 @@ class ServingEngine:
             self.slot_req[slot] = req
             self._try_prefix_attach(req)
             admitted.append(req)
+        if self.tracer.enabled and admitted:
+            t = self.tracer.now()
+            for req in admitted:
+                self.tracer.request_span(
+                    req.req_id, "queued", req.t_requeue or req.t_submit, t,
+                    cached_tokens=req.cached_tokens,
+                    n_preempted=req.n_preempted)
         return admitted
 
     def _by_id(self) -> Dict[int, Request]:
@@ -748,6 +931,10 @@ class ServingEngine:
         req.state = RequestState.WAITING
         req.n_preempted += 1
         self.preemptions += 1
+        req.t_requeue = time.monotonic()    # the next queued span starts here
+        if self.tracer.enabled:
+            self.tracer.instant("preempt", req.t_requeue, req_id=req.req_id,
+                                swapped=req.swap is not None)
         # keep the queue age-ordered: the re-queued victim outranks later
         # submissions
         i = 0
@@ -842,6 +1029,7 @@ class ServingEngine:
         need = [p.pages_of(length) for p in pools]
         if any(self.host_tier.free_pages(r) < n for r, n in enumerate(need)):
             return False
+        t_sw0, b0 = self.tracer.now(), self.host_tier.swap_out_bytes
         pages: List[List[int]] = []
         for r, p in enumerate(pools):
             host = self.host_tier.alloc(r, need[r])
@@ -855,6 +1043,11 @@ class ServingEngine:
             cached_tokens=req.cached_tokens,
             pos=int(self.slot_pos[req.slot]), state=req.state)
         self.swap_outs += 1
+        if self.tracer.enabled:
+            # ends after the swap's one sync: the copies' device time
+            self.tracer.request_span(
+                req.req_id, "swap_out", t_sw0, self.tracer.now(),
+                bytes=self.host_tier.swap_out_bytes - b0, tokens=length)
         return True
 
     def _try_swap_in(self, req: Request, slot: int) -> bool:
@@ -870,6 +1063,7 @@ class ServingEngine:
             self._reclaim_cache(deficit)
             if not self.pool.grow(slot, h.length):
                 return False
+        t_sw0, b0 = self.tracer.now(), self.host_tier.swap_in_bytes
         req.slot = slot
         self.slot_req[slot] = req
         for r, p in enumerate(self.pool.pools):
@@ -883,6 +1077,12 @@ class ServingEngine:
         self.slot_pos[slot] = h.pos     # -1 for a mid-prefill swap
         req.swap = None
         self.swap_resumes += 1
+        if self.tracer.enabled:
+            # the uploads are stream-ordered, not waited for: the span
+            # bounds their enqueue
+            self.tracer.request_span(
+                req.req_id, "swap_in", t_sw0, self.tracer.now(),
+                bytes=self.host_tier.swap_in_bytes - b0, tokens=h.length)
         return True
 
     def _demote_pages(self, dev_pages: List[int]) -> Optional[List[int]]:
@@ -958,6 +1158,9 @@ class ServingEngine:
         self._append_token(req, tok)
         if req.t_first_token == 0.0:    # a resumed prefill keeps its TTFT
             req.t_first_token = time.monotonic()
+            if self.tracer.enabled:
+                self.tracer.instant("first_token", req.t_first_token,
+                                    req_id=req.req_id)
         req.state = RequestState.DECODING
         if self._finished(req):
             self._retire(req)
@@ -991,8 +1194,12 @@ class ServingEngine:
     def _retire(self, req: Request) -> None:
         req.state = RequestState.DONE
         req.t_done = time.monotonic()
-        self.metrics.observe("serving_ttft_seconds", req.ttft)
-        self.metrics.observe("serving_tpot_seconds", req.tpot)
+        self._account_latency(req)
+        if self.tracer.enabled:
+            self.tracer.end_request(req.req_id, req.t_done,
+                                    reason=req.finish_reason,
+                                    generated=len(req.generated),
+                                    n_preempted=req.n_preempted)
         if self.drafter is not None:
             self.drafter.release(req.slot)
         if self.paged:
@@ -1000,6 +1207,26 @@ class ServingEngine:
         self.slot_req[req.slot] = None
         self.slot_pos[req.slot] = -1
         self.done.append(req)
+
+    def _account_latency(self, req: Request) -> None:
+        """Retirement-time latency/SLO bookkeeping: TTFT/TPOT histogram
+        samples (NaN = never emitted — skipped by ``observe``) and, for
+        requests submitted with deadlines, the ``serving_slo_*``
+        attainment counters behind ``goodput()``.  Aborted requests never
+        reach here (see ``abort``): goodput measures served requests."""
+        m = self.metrics
+        m.observe("serving_ttft_seconds", req.ttft)
+        m.observe("serving_tpot_seconds", req.tpot)
+        if req.slo is None:
+            return
+        ok, ttft_ok, tpot_ok = slo_attainment(req.ttft, req.tpot, req.slo)
+        m.inc("serving_slo_requests_total")
+        if ok:
+            m.inc("serving_slo_attained_total")
+        if not ttft_ok:
+            m.inc("serving_slo_ttft_violations_total")
+        if not tpot_ok:
+            m.inc("serving_slo_tpot_violations_total")
 
     def _grow_for_decode(self, r: Request) -> bool:
         """Secure this tick's one-token write for ``r``: grow the slot by
@@ -1036,17 +1263,23 @@ class ServingEngine:
             for req, take in chunks:
                 tokens = self._tensor(req.prompt[None])
                 pp, all_greedy = self._pack_params([(0, req)], 1)
+                tw0 = self.tracer.now()
                 self._note_compile(plan.prefill_group, "whole",
                                    (req.prompt_len,), all_greedy)
                 toks, self.cache = self._program(plan.prefill_group,
                                                  "whole")(
                     self.params, tokens, req.slot, self.cache, *pp,
                     all_greedy)
+                sampled = self._to_host(toks)
+                if self.tracer.enabled:
+                    self.tracer.request_span(
+                        req.req_id, "prefill_chunk", tw0, self.tracer.now(),
+                        take=req.prompt_len, offset=0)
                 req.prefill_pos = req.prompt_len
                 self.prefill_tokens_executed += req.prompt_len
                 self.prefill_launches += 1
                 self.prefill_rows_executed += req.prompt_len
-                self._start_decoding(req, self._to_host(toks)[0])
+                self._start_decoding(req, sampled[0])
             return
         if self.paged:
             # claim the chunks' pages; the scheduler planned against the
@@ -1070,18 +1303,27 @@ class ServingEngine:
             if not chunks:
                 return
         self._prefill_progress = True
+        tp0 = self.tracer.now()
         if self._packed:
             toks = self._launch_packed_prefill(plan, chunks)
         else:
             toks = self._launch_padded_prefill(plan, chunks)
         self.prefill_tokens_executed += sum(take for _, take in chunks)
         self.prefill_launches += 1
-        sampled = None
+        # one transfer per tick, made only when a chunk completes its
+        # prompt (the sampled token seeds its decoding)
+        sampled = (self._to_host(toks) if any(
+            req.prefill_pos + take >= self._effective_len(req)
+            for req, take in chunks) else None)
+        if self.tracer.enabled:
+            tp1 = self.tracer.now()     # one launch serves every chunk
+            for req, take in chunks:
+                self.tracer.request_span(req.req_id, "prefill_chunk",
+                                         tp0, tp1, take=take,
+                                         offset=req.prefill_pos)
         for i, (req, take) in enumerate(chunks):
             req.prefill_pos += take
             if req.prefill_pos >= self._effective_len(req):
-                if sampled is None:
-                    sampled = self._to_host(toks)   # one transfer per tick
                 self._start_decoding(req, sampled[i])
 
     def _launch_padded_prefill(self, plan: TickPlan, chunks) -> Any:
@@ -1195,6 +1437,7 @@ class ServingEngine:
             slots[i] = r.slot
         pp, all_greedy = self._pack_params(
             [(i, r) for i, (r, _) in enumerate(rows)], N)
+        tv0 = self.tracer.now()
         self._note_compile(plan.verify_group, "verify", (N, C), all_greedy)
         out, self.cache = self._program(plan.verify_group, "verify")(
             self.params, self._tensor(tokens), self._tensor(offs),
@@ -1202,6 +1445,7 @@ class ServingEngine:
             self.pool.block_tables(upto=int((offs + lens).max())),
             self._tensor(draft), *pp, all_greedy)
         packed = self._to_host(out)                 # [N, C+1], one transfer
+        tv1 = self.tracer.now()
         for i, (r, d) in enumerate(rows):
             kd = int(d.shape[-1])
             n_emit = int(packed[i, -1])
@@ -1216,11 +1460,17 @@ class ServingEngine:
             new_pos = int(self.slot_pos[r.slot]) + accepted + 1
             self.pool.truncate(r.slot, new_pos)
             self.slot_pos[r.slot] = new_pos
+            appended = 0
             for t in packed[i, :n_emit]:
                 self._append_token(r, t)
                 self.decode_tokens_emitted += 1
+                appended += 1
                 if self._stream_reason(r) is not None:  # eos / max_new clip
                     break
+            if self.tracer.enabled:
+                self.tracer.request_span(r.req_id, "verify_window", tv0, tv1,
+                                         drafted=kd, accepted=accepted,
+                                         emitted=appended)
             self.drafter.observe(r.slot, r.req_id, self._effective_len(r))
             if self._finished(r):
                 self._retire(r)
@@ -1296,6 +1546,7 @@ class ServingEngine:
                 pos[i] = self.slot_pos[r.slot]
             pp, all_greedy = self._pack_params(
                 [(i, r) for i, r in enumerate(active)], nb)
+            td0 = self.tracer.now()
             self._note_compile(plan.decode_group, "decode_paged", (nb,),
                                all_greedy)
             # pad rows carry all-sentinel block-table rows: their writes
@@ -1321,17 +1572,22 @@ class ServingEngine:
                            0).astype(np.int32)
             pp, all_greedy = self._pack_params(
                 [(r.slot, r) for r in active], B)
+            td0 = self.tracer.now()
             self._note_compile(plan.decode_group, "decode", (B,), all_greedy)
             toks, self.cache = self._program(plan.decode_group, "decode")(
                 self.params, self._tensor(tokens), self.cache,
                 self._tensor(pos), self._tensor(mask), *pp, all_greedy)
             emitted = [(r.slot, r) for r in active]
         sampled = self._to_host(toks)               # one transfer per tick
+        td1 = self.tracer.now()
         for row, r in emitted:
             self._append_token(r, sampled[row])
             self.decode_tokens_emitted += 1
             self.decode_slot_ticks += 1
             self.slot_pos[r.slot] += 1
+            if self.tracer.enabled:
+                self.tracer.request_span(r.req_id, "decode", td0, td1,
+                                         tokens=1)
             if self._finished(r):
                 self._retire(r)
 
@@ -1344,14 +1600,19 @@ class ServingEngine:
         t0 = time.monotonic()
         self.executor.begin_tick()
         self._prefill_progress = False
+        # deferred submits re-enter as soon as the backlog has room —
+        # BEFORE this tick's admission so they compete for freed slots
+        self._reconsider_deferred()
         counts0 = {r.req_id: len(r.generated) for r in self.queue}
         counts0.update({r.req_id: len(r.generated)
                         for r in self.slot_req if r is not None})
         done0 = len(self.done)
         self._admit()
+        # entries carry (priority, TTFT deadline) so plan_tick orders the
+        # prefill budget by class, then EDF, then age
         prefilling = sorted(
             ((r.req_id, self._effective_len(r) - r.prefill_pos,
-              self.chunked, r.prefill_pos)
+              self.chunked, r.prefill_pos, r.priority, r.ttft_deadline_s)
              for r in self.slot_req
              if r is not None and r.state == RequestState.PREFILLING),
             key=lambda e: e[0])
@@ -1404,6 +1665,33 @@ class ServingEngine:
             host_resident_pages=(self.host_tier.used_pages()
                                  if self.host_tier is not None else 0))
         self.metrics.observe("serving_tick_wall_seconds", rec.wall_s)
+        # tick-cost EMA for admission TTFT projections (alpha 0.2); ticks
+        # that met a new program shape are left out, as in the reference
+        if rec.new_compiles == 0:
+            self._tick_wall_n += 1
+            self._tick_wall_ema = (rec.wall_s if self._tick_wall_n == 1 else
+                                   0.8 * self._tick_wall_ema
+                                   + 0.2 * rec.wall_s)
+        if self.tracer.enabled:
+            # the TickRecord twin: summing an arg across the tick track
+            # reproduces the registry total
+            self.tracer.tick_span(
+                t0, t0 + rec.wall_s, index=rec.index,
+                prefill_reqs=list(rec.prefill_reqs),
+                prefill_tokens=rec.prefill_tokens,
+                decode_reqs=list(rec.decode_reqs),
+                prefill_group=rec.prefill_group or "",
+                decode_group=rec.decode_group or "",
+                preemptions=rec.preemptions,
+                kv_resident_bytes=rec.kv_resident_bytes,
+                spec_drafted=rec.spec_drafted,
+                spec_accepted=rec.spec_accepted,
+                new_compiles=rec.new_compiles,
+                migrated_pages=rec.migrated_pages,
+                migrated_bytes=rec.migrated_bytes,
+                swap_out_bytes=rec.swap_out_bytes,
+                swap_in_bytes=rec.swap_in_bytes,
+                host_resident_pages=rec.host_resident_pages)
         self.tick_log.append(rec)
         self._n_ticks += 1
         self._n_prefill_ticks += bool(rec.prefill_reqs)
@@ -1429,22 +1717,45 @@ class ServingEngine:
         return outputs
 
     def counts(self) -> Dict[str, int]:
-        """Queue/slot/done occupancy plus the lifetime migration and
-        tiered-KV counters — every value is a view over the metrics
-        registry (or derived from one).  The reference's admission and SLO
-        keys (deferred, shed, slo_*, goodput) come with ROADMAP queue A,
-        item 10."""
+        """Queue/slot/done occupancy plus the lifetime migration, tiered-KV
+        and admission counters and SLO attainment — every value is a view
+        over the metrics registry (or derived from one)."""
         tier = self.host_tier
+        g = self.goodput()
         return {"queued": len(self.queue),
+                "deferred": len(self.deferred),
                 "active": sum(r is not None for r in self.slot_req),
                 "done": len(self.done),
+                "shed": self.admission_shed,
                 "migrated_pages": self.executor.migrated_pages,
                 "migrated_bytes": self.executor.migrated_bytes,
                 "swap_out_bytes": tier.swap_out_bytes if tier else 0,
                 "swap_in_bytes": tier.swap_in_bytes if tier else 0,
                 "swap_resumes": self.swap_resumes,
                 "recompute_preemptions": self.recompute_preemptions,
-                "host_resident_pages": tier.used_pages() if tier else 0}
+                "host_resident_pages": tier.used_pages() if tier else 0,
+                "slo_total": g["slo_total"],
+                "slo_attained": g["slo_attained"],
+                "goodput": g["goodput"]}
+
+    def goodput(self) -> Dict[str, float]:
+        """SLO attainment over retired requests submitted with deadlines
+        (``submit(..., slo=SLO(...))``); aborted requests are excluded,
+        shed ones count un-attained.  ``goodput`` is the attained fraction
+        — 1.0 vacuously when no request carried an SLO.  The per-axis
+        violation counts say WHICH deadline was missed."""
+        m = self.metrics
+        total = int(m.counter("serving_slo_requests_total"))
+        attained = int(m.counter("serving_slo_attained_total"))
+        return {
+            "slo_total": total,
+            "slo_attained": attained,
+            "ttft_violations":
+                int(m.counter("serving_slo_ttft_violations_total")),
+            "tpot_violations":
+                int(m.counter("serving_slo_tpot_violations_total")),
+            "goodput": attained / total if total else 1.0,
+        }
 
     def metrics_snapshot(self) -> Dict[str, Dict]:
         """The full registry snapshot (counters / gauges / histograms)
@@ -1464,18 +1775,33 @@ class ServingEngine:
         return m.snapshot()
 
     def _live(self) -> bool:
-        return bool(self.queue or any(r is not None for r in self.slot_req))
+        """Requests still owed service: queued, deferred, or in a slot."""
+        return bool(self.queue or self.deferred
+                    or any(r is not None for r in self.slot_req))
 
     def _check_drained(self, ticks: int, max_ticks: int) -> None:
-        """Fail LOUDLY when the tick budget runs out with live requests."""
+        """Fail LOUDLY when the tick budget runs out with live requests,
+        with the counts, the per-state breakdown and the last tick record.
+        Admission outcomes are their OWN buckets — ``deferred`` (parked
+        outside the queue, still owed service) and the ``shed`` tally — so
+        an admission stall reads differently from a scheduling stall."""
         if ticks >= max_ticks and self._live():
             c = self.counts()
+            states: Dict[str, int] = {}
+            for r in list(self.queue) + [r for r in self.slot_req
+                                         if r is not None]:
+                states[r.state.value] = states.get(r.state.value, 0) + 1
+            if self.deferred:
+                states["deferred"] = len(self.deferred)
             last = self.tick_log[-1] if self.tick_log else None
             raise RuntimeError(
                 f"max_ticks={max_ticks} exhausted with live requests "
-                f"({c['queued']} queued, {c['active']} active, {c['done']} "
-                f"done; preemptions={self.preemptions}) — the engine did not "
-                f"drain. counts={c} last_tick={last}")
+                f"({c['queued']} queued, {c['deferred']} deferred, "
+                f"{c['active']} active, {c['done']} done of which "
+                f"{c['shed']} shed; states={states}, "
+                f"preemptions={self.preemptions}) — the engine did not "
+                f"drain; raise max_ticks or check for a scheduling stall. "
+                f"counts={c} last_tick={last}")
 
     def run_until_drained(self, max_ticks: int = 10_000) -> List[Request]:
         ticks = 0

@@ -34,7 +34,8 @@ Host-only.
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable, List, Sequence
+from dataclasses import dataclass
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 # default histogram ladder (seconds): spans sub-ms CPU ticks to the
 # multi-second tail of a cold-compile tick
@@ -206,9 +207,63 @@ def gauge_attr(name: str) -> property:
     return property(fget, fset, doc=f"view over registry gauge {name!r}")
 
 
+def quantile(xs: Iterable[float], q: float) -> float:
+    """NaN-guarded linear-interpolation quantile.  NaN/None entries are
+    dropped (an unfinished request's TTFT is undefined, not zero); an
+    empty sample returns NaN."""
+    if not 0.0 <= q <= 1.0:
+        raise ValueError(f"quantile q={q} outside [0, 1]")
+    vals = sorted(float(x) for x in xs
+                  if x is not None and not math.isnan(float(x)))
+    if not vals:
+        return float("nan")
+    pos = q * (len(vals) - 1)
+    lo = int(math.floor(pos))
+    hi = min(lo + 1, len(vals) - 1)
+    frac = pos - lo
+    return vals[lo] * (1.0 - frac) + vals[hi] * frac
+
+
+@dataclass(frozen=True)
+class SLO:
+    """Per-request latency deadlines (milliseconds; None = don't care).
+
+    ``ttft_ms`` bounds time-to-first-token (the prefill-side experience),
+    ``tpot_ms`` bounds time-per-output-token after the first (the decode-
+    side experience) — the two axes of goodput under SLO.  Pass via
+    ``ServingEngine.submit(..., slo=SLO(...))``.
+    """
+    ttft_ms: Optional[float] = None
+    tpot_ms: Optional[float] = None
+
+    def __post_init__(self):
+        for f in ("ttft_ms", "tpot_ms"):
+            v = getattr(self, f)
+            if v is not None and not v > 0:
+                raise ValueError(f"SLO.{f}={v!r} (deadlines must be > 0)")
+
+
+def slo_attainment(ttft_s: float, tpot_s: float,
+                   slo: SLO) -> Tuple[bool, bool, bool]:
+    """(attained, ttft_ok, tpot_ok) for one request's measured latencies
+    (seconds, NaN = undefined) against its deadlines.
+
+    A NaN latency FAILS any deadline set on that axis (a request that
+    never produced a first token did not meet its TTFT bound) and
+    trivially passes an absent one; attained = both axes ok."""
+    ttft_ok = slo.ttft_ms is None or (
+        not math.isnan(ttft_s) and ttft_s * 1e3 <= slo.ttft_ms)
+    tpot_ok = slo.tpot_ms is None or (
+        not math.isnan(tpot_s) and tpot_s * 1e3 <= slo.tpot_ms)
+    return ttft_ok and tpot_ok, ttft_ok, tpot_ok
+
+
 __all__ = [
     "DEFAULT_LATENCY_BUCKETS",
     "MetricsRegistry",
+    "SLO",
     "counter_attr",
     "gauge_attr",
+    "quantile",
+    "slo_attainment",
 ]

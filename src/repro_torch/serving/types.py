@@ -14,9 +14,7 @@ The serving stack has three layers (see docs/serving.md
 These dataclasses are the contract between them — pure host types.
 The port keeps every ``ServeConfig`` field of the reference; the engine
 raises ``NotImplementedError`` for the options whose slice has not been
-ported yet.  ``Request`` carries only the fields this slice's engine
-sets: the SLO deadline and priority lane come with the async front-end
-(ROADMAP queue A, item 10).
+ported yet.
 """
 
 from __future__ import annotations
@@ -27,8 +25,10 @@ from typing import Any, List, Optional
 
 import numpy as np
 
+from repro_torch.serving.metrics import SLO
 from repro_torch.serving.sampling import SamplingParams
-from repro_torch.serving.scheduler import AdmissionConfig, PhaseAwareConfig
+from repro_torch.serving.scheduler import (AdmissionConfig, PhaseAwareConfig,
+                                           PRIORITY_STANDARD)
 from repro_torch.serving.speculative import SpecConfig
 
 
@@ -57,6 +57,13 @@ class Request:
     t_submit: float = 0.0
     t_first_token: float = 0.0
     t_done: float = 0.0
+    t_requeue: float = 0.0              # last preemption re-queue instant
+    # latency deadlines for goodput accounting (serving/metrics.py);
+    # None = best-effort, excluded from SLO attainment
+    slo: Optional[SLO] = None
+    # scheduling lane (scheduler.PRIORITY_*): prefill admission orders by
+    # (priority, TTFT deadline, age) — see PhaseScheduler.plan_tick
+    priority: int = PRIORITY_STANDARD
     # host-tier swap handle (set while the request's KV pages live in the
     # host spill pool between a swap-out preemption and its swap-in resume)
     swap: Optional[Any] = None
@@ -68,6 +75,16 @@ class Request:
     @property
     def eos_id(self) -> Optional[int]:
         return self.sampling.eos_id
+
+    @property
+    def ttft_deadline_s(self) -> float:
+        """Absolute wall-clock instant the first token is due (``inf``
+        for best-effort requests or an SLO with no TTFT term) — the EDF
+        key ``PhaseScheduler.plan_tick`` orders prefill admission by,
+        and the bound the admission controller projects against."""
+        if self.slo is not None and self.slo.ttft_ms is not None:
+            return self.t_submit + self.slo.ttft_ms / 1e3
+        return float("inf")
 
     @property
     def ttft(self) -> float:

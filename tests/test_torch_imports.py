@@ -86,3 +86,11 @@ def test_guard_covers_the_prefix_and_speculative_path():
                 "serving/sampling.py", "serving/kv_pool.py",
                 "serving/executor.py", "serving/types.py"):
         assert f"src/repro_torch/{mod}" in names
+
+
+def test_guard_covers_the_frontend_path():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in ("serving/tracing.py", "serving/frontend.py",
+                "serving/traffic.py", "serving/metrics.py",
+                "serving/scheduler.py"):
+        assert f"src/repro_torch/{mod}" in names

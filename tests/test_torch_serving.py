@@ -190,21 +190,25 @@ _MODEL_DRAFTER = SpecConfig(k=2, drafter="model", draft_arch="llama2-7b")
     (dict(paged=False, packed_prefill=False), "item 11"),
     (dict(paged=True, speculative=_MODEL_DRAFTER), "item 7c"),
     (dict(paged=True, prefix_cache=True, host_spill_pages=4,
-          admission=scheduler.AdmissionConfig()), "item 10"),
+          admission=scheduler.AdmissionConfig(),
+          speculative=_MODEL_DRAFTER), "item 7c"),
     (dict(paged=True, speculative=_MODEL_DRAFTER, greedy=False,
           temperature=0.7), "item 7c"),
     (dict(paged=True, host_spill_pages=4, speculative=_MODEL_DRAFTER),
      "item 7c"),
-    (dict(paged=True, admission=scheduler.AdmissionConfig()), "item 10"),
+    (dict(paged=False, packed_prefill=False,
+          admission=scheduler.AdmissionConfig()), "item 11"),
     (dict(paged=True, greedy=False, temperature=0.7,
-          admission=scheduler.AdmissionConfig()), "item 10"),
-    (dict(paged=True, executor="disaggregated",
-          admission=scheduler.AdmissionConfig()), "item 10")],
+          admission=scheduler.AdmissionConfig(tick_cost_s=0.01),
+          speculative=_MODEL_DRAFTER), "item 7c"),
+    (dict(paged=False, packed_prefill=False, executor="disaggregated",
+          admission=scheduler.AdmissionConfig(max_pending_tokens=64)),
+     "item 11")],
     ids=[f"option{i}" for i in range(8)])
 def test_unported_options_raise(option, item):
-    """What the port still refuses — the dense arena's padded prefill, the
-    draft-model drafter and admission control — raises naming its ROADMAP
-    item, whatever served option comes with it."""
+    """What the port still refuses — the dense arena's padded prefill and
+    the draft-model drafter — raises naming its ROADMAP item, whatever
+    served option (admission control among them) comes with it."""
     cfg, params = _tiny()
     with pytest.raises(NotImplementedError, match=item):
         ServingEngine(cfg, params, ServeConfig(**option), device="cpu")

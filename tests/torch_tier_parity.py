@@ -8,7 +8,8 @@ record (prefill and decode request lists, prefill tokens, preemptions,
 drafted and accepted tokens, migrated pages and bytes, swap bytes, host
 pages in use), ``counts()``, the host transfers so far, each run's page
 pool (block tables, lengths, refcounts, cache pins, free list), the host
-tier's free lists and the prefix cache's stats; after the drain also
+tier's free lists and the prefix cache's stats, and with admission control
+the deferred requests and the finish reasons so far; after the drain also
 ``prefix_stats()``, ``spec_stats()``, the compile count and the finish
 reasons.  Greedy streams must be equal; a stochastic request (the two
 packages draw from different sources) must emit as many tokens, each
@@ -21,28 +22,34 @@ import numpy as np
 
 from repro.serving.engine import ServeConfig as JaxServeConfig
 from repro.serving.engine import ServingEngine as JaxServingEngine
+from repro.serving.metrics import SLO as JaxSLO
 from repro.serving.sampling import SamplingParams as JaxSamplingParams
+from repro.serving.scheduler import AdmissionConfig as JaxAdmissionConfig
 from repro.serving.scheduler import PhaseAwareConfig as JaxPhaseAwareConfig
 from repro.serving.speculative import SpecConfig as JaxSpecConfig
+from repro.serving.tracing import Tracer as JaxTracer
 from repro_torch.serving.engine import ServeConfig, ServingEngine
+from repro_torch.serving.metrics import SLO
 from repro_torch.serving.sampling import SamplingParams
-from repro_torch.serving.scheduler import PhaseAwareConfig
+from repro_torch.serving.scheduler import AdmissionConfig, PhaseAwareConfig
 from repro_torch.serving.speculative import SpecConfig
+from repro_torch.serving.tracing import Tracer
 from torch_spec_parity import models
 
 _TICK_FIELDS = ("prefill_reqs", "decode_reqs", "prefill_tokens",
                 "preemptions", "spec_drafted", "spec_accepted",
                 "migrated_pages", "migrated_bytes", "swap_out_bytes",
                 "swap_in_bytes", "host_resident_pages")
-# the reference's counts() keys the port leaves to ROADMAP item 10
-_ITEM_10 = ("deferred", "shed", "slo_total", "slo_attained", "goodput")
 
 
 def build(name: str, *, k: Optional[int] = None, max_batch: int = 2,
-          prefill_chunk: int = 8, max_prefill_tokens: int = 16, **kw):
+          prefill_chunk: int = 8, max_prefill_tokens: int = 16,
+          admission: Optional[Dict] = None, trace: bool = False, **kw):
     """(reference engine, port engine) of reduced ``name`` with the same
     ServeConfig: ``speculative=SpecConfig(k=k)`` when ``k`` is given,
-    pages of 8 tokens and the other fields ``kw``."""
+    ``admission=AdmissionConfig(**admission)`` when ``admission`` is given,
+    pages of 8 tokens and the other fields ``kw``; with ``trace`` each
+    engine records into its package's ``Tracer``."""
     jcfg, jp, cfg, tp = models(name)
     common = dict(max_batch=max_batch, max_len=96, page_size=8, **kw)
     common.setdefault("paged", True)
@@ -51,17 +58,22 @@ def build(name: str, *, k: Optional[int] = None, max_batch: int = 2,
                  max_prefill_tokens=max_prefill_tokens, pack_align=8)
     ref = JaxServingEngine(jcfg, jp, JaxServeConfig(
         phase=JaxPhaseAwareConfig(**phase),
-        speculative=JaxSpecConfig(k=k) if k else None, **common))
+        speculative=JaxSpecConfig(k=k) if k else None,
+        admission=(JaxAdmissionConfig(**admission)
+                   if admission is not None else None), **common),
+        tracer=JaxTracer() if trace else None)
     ours = ServingEngine(cfg, tp, ServeConfig(
         phase=PhaseAwareConfig(**phase),
-        speculative=SpecConfig(k=k) if k else None, **common), device="cpu")
+        speculative=SpecConfig(k=k) if k else None,
+        admission=(AdmissionConfig(**admission)
+                   if admission is not None else None), **common),
+        device="cpu", tracer=Tracer() if trace else None)
     return ref, ours
 
 
 def host_state(eng) -> Dict:
     """What the host decided so far, comparable across the packages."""
-    counts = {k: v for k, v in eng.counts().items() if k not in _ITEM_10}
-    out = dict(counts=counts, transfers=eng.host_transfers,
+    out = dict(counts=eng.counts(), transfers=eng.host_transfers,
                queue=[r.req_id for r in eng.queue],
                slots=[None if r is None else r.req_id
                       for r in eng.slot_req],
@@ -74,6 +86,10 @@ def host_state(eng) -> Dict:
         out["host_free"] = [list(f) for f in eng.host_tier.free]
     if eng.prefix is not None:
         out["prefix"] = eng.prefix.stats()
+    if eng.admission is not None:
+        out["deferred"] = [r.req_id for r in eng.deferred]
+        out["done"] = [(r.req_id, r.finish_reason) for r in eng.done]
+        out["goodput"] = eng.goodput()
     return out
 
 
@@ -81,7 +97,9 @@ def tick_record(t) -> Tuple:
     return tuple(getattr(t, f) for f in _TICK_FIELDS)
 
 
-Op = Tuple  # ("submit", prompt, sampling kwargs) | ("abort", i) | ("step",)
+# ("submit", prompt, sampling kwargs[, {"slo": (ttft_ms, tpot_ms),
+# "priority": p}]) | ("abort", i) | ("step",)
+Op = Tuple
 
 
 def run_script(name: str, ops: Sequence[Op], *, max_ticks: int = 600,
@@ -100,9 +118,15 @@ def run_script(name: str, ops: Sequence[Op], *, max_ticks: int = 600,
     for i, op in enumerate(ops):
         if op[0] == "submit":
             prompt, sp = op[1], dict(op[2])
+            extra = dict(op[3]) if len(op) > 3 else {}
+            slo = extra.pop("slo", None)
             reqs.append((
-                ref.submit(prompt.copy(), sampling=JaxSamplingParams(**sp)),
-                ours.submit(prompt.copy(), sampling=SamplingParams(**sp))))
+                ref.submit(prompt.copy(), sampling=JaxSamplingParams(**sp),
+                           slo=None if slo is None else JaxSLO(*slo),
+                           **extra),
+                ours.submit(prompt.copy(), sampling=SamplingParams(**sp),
+                            slo=None if slo is None else SLO(*slo),
+                            **extra)))
         elif op[0] == "abort":
             a, b = ref.abort(op[1]), ours.abort(op[1])
             assert (a is None) == (b is None)
