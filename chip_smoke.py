@@ -67,7 +67,16 @@ Phases, one JSON line each:
    their inputs name, its entry point must refuse f32, P = 32 and N = 100
    on the tensor cores, and ``kernel_phase_ssd_edges`` holds it at Q = 1,
    24, 200 and 256 over 1 and 33 chunks, over chunks whose cs spans 100 in
-   every head, and two launches to the same bits.
+   every head, and two launches to the same bits.  At zamba2-2.7b's
+   geometry (``kernel_phase_zamba2``): B5 at its shared attention block's
+   H = Hkv = 32, D = 160 (the tensor cores in bf16, three 64-column TMA
+   chunks a row; the tile in f32) at T = 2560 and 4000, batch 1 and 2; B6
+   there over a 4160-position arena at batch 1 and 4 and at the edges of
+   its walk, with two launches to the same bits; B7 at its SSM geometry
+   (H = 80, P = 64, N = 64) over 32 chunks of 256 and one of 200; and the
+   shapes still not built refused by their wrappers (``ValueError``, no
+   launch): B6 at D = 160 with G = 4 and at D = 96, B5 at D = 96, B1 and
+   B2 at D = 160.
    Tolerances: B7, whatever the input dtype and route, the per-element
    worst-case
    bound of f32 arithmetic of ``ssd_tolerance``; otherwise
@@ -238,9 +247,23 @@ Phases, one JSON line each:
    tensor-core route's own bound (``ssd_route_cost``).  TTFT per prompt length, TPOT, decode tokens/s, weight and state
    bytes, peak memory, a ``profile`` line for a round and one for a
    prefill-only pass with B7's share of its device time.
-13. ``preempt`` — the same model cut to 4 layers, with a pool small enough
+13. ``serve_hybrid`` — zamba2-2.7b at full width in bf16 (54 Mamba-2
+   layers, d_model 2560, one shared attention block of 32 heads of 160
+   over concat([h, embed0]) applied after every 6; random seeded weights)
+   on the dense arena (max_len 8448, max_batch 4) with whole-prompt
+   prefill: after the 24-token warm-up, prompts of 8192, 4096, 2304 and
+   200 tokens, 64 new tokens each, two rounds.  B7 must launch 54 x 4 a
+   round, B5 9 x 3 (every prompt above 2048 tokens, every shared block),
+   B6 9 x the decode steps, every other kernel never; B5 and B7 only on
+   their tensor-core routes.  B5 (the 8192-token prompt's first shared
+   block), B6 (the first shared block of the first decode step with all
+   four requests decoding) and B7 (that prompt's first layer) are
+   re-checked at those inputs and timed beside SDPA.  TTFT per prompt
+   length, TPOT, decode tokens/s, weight, shared-K/V and state bytes and
+   peak memory; no ``profile`` line.
+14. ``preempt`` — the same model cut to 4 layers, with a pool small enough
    to force preemptions; every request must finish.
-14. ``parity``  — reduced llama2-7b and qwen3-8b in f32, one engine on
+15. ``parity``  — reduced llama2-7b and qwen3-8b in f32, one engine on
    ``cuda`` (kernels) and one on ``cpu`` (plain versions), same weights,
    f32 KV (with and without a forced preemption) and int8 KV on the paged
    pool; with the prefix cache (f32 and int8 KV), speculation (k = 4),
@@ -262,8 +285,8 @@ In every serve phase each kernel's plain version must be called 0 times:
 on the card nothing falls back to it.  B5, B2, B3, B8 and B7 count their
 launches by route: ``serve``, ``serve_sampling``, ``serve_tier`` (its int8
 round too), ``serve_traffic``, ``serve_prefix_spec`` and its int8 round,
-``serve_quantized`` (B3 among them), both ``serve_dense`` rounds and
-``serve_ssm`` (bf16) must launch only their
+``serve_quantized`` (B3 among them), both ``serve_dense`` rounds,
+``serve_ssm`` and ``serve_hybrid`` (bf16) must launch only their
 tensor-core route, ``parity`` (f32) only the CUDA-core tile, and ``bench``
 as said above.
 
@@ -316,6 +339,8 @@ PREFIX_TAILS = (876, 333, 37, 0)
 # (see serve_prefix_spec_phase)
 SPEC_TIE_MARGIN = 0.1
 SSM_MAX_LEN = 8448        # serve_ssm arena positions per slot (8192 + 256)
+ROUNDS_HYBRID = 2         # serve_hybrid rounds
+HYBRID_MAX_LEN = 8448     # serve_hybrid arena positions per slot (8192 + 256)
 DEV = "cuda"              # the card; the input builders allocate here
 FAILED = []               # kernel checks that disagreed (raised per phase)
 
@@ -1285,6 +1310,7 @@ def kernel_phase(torch, timer):
         kernel_phase_b3_b8(torch, timer, dtype)
         kernel_phase_decode_edges(torch, timer, dtype)
         kernel_phase_ssd_edges(torch, timer, dtype)
+        kernel_phase_zamba2(torch, timer, dtype)
     require_all_agree("kernel")
 
 
@@ -1562,6 +1588,88 @@ def kernel_phase_ssd_edges(torch, timer, dtype):
     check_same_bits(torch, "ssd_chunk", args, {},
                     "edges, " + shapes_label(args, {}),
                     route=expected_route("ssd_chunk", args))
+
+
+# zamba2-2.7b's shared attention block: H = Hkv = 32 heads of 2 x 2560 / 32
+# = 160 over concat([h, embed0]); its SSM layers: 80 heads of 64, state 64
+ZAMBA2_GEOM = (32, 32, 160)
+ZAMBA2_SSD_GEOM = dict(H=80, P=64, N=64)
+
+
+def kernel_phase_zamba2(torch, timer, dtype):
+    """What zamba2-2.7b runs: B5 at its shared block's geometry (H = Hkv =
+    32, D = 160; the tensor cores in bf16, staged as three 64-column
+    chunks, the tile in f32) at T = 2560 and 4000 (a ragged last tile),
+    batch 1 and 2; B6 there over a 4160-position arena at batch 1 and 4
+    (lengths 1, ragged and full, NaN past every length) and at the edges
+    of its walk (``decode_edge_lengths`` over ``DECODE_EDGE_S``; stages of
+    16 tokens in bf16 and 4 in f32 at D = 160), with two launches to the
+    same bits; B7 at its SSM geometry (H = 80, P = 64, N = 64) over an
+    8192-token prompt's 32 chunks of 256 and a 200-token prompt's one; and
+    the shapes the kernels are still not built for refused
+    (``check_shape_refusals``).  Seeds of their own, so the other checks'
+    inputs stay as they were."""
+    seed = 6000 + 100 * (dtype == torch.bfloat16)
+    H, Hkv, D = ZAMBA2_GEOM
+    for B, T in ((1, 2560), (1, 4000), (2, 2560), (2, 4000)):
+        seed += 1
+        args, kw = flash_inputs(torch, H, Hkv, D, B, T, 0, dtype, seed)
+        check_kernel(torch, timer, "flash_attention", args, kw,
+                     f"zamba2 shared block B={B} T={T} D={D}")
+    for B in (1, 4):
+        seed += 1
+        args = dense_decode_inputs(torch, H, Hkv, D, B, 4160, dtype, seed)
+        check_kernel(torch, timer, "decode_attention", args, {},
+                     f"zamba2 shared block B={B} S=4160 D={D}")
+    S = DECODE_EDGE_S
+    lengths, w, sp = decode_edge_lengths(torch, dtype, H, Hkv, D, S, S)
+    seed += 1
+    dense = arena_inputs(torch, H, Hkv, D, S, lengths, dtype, seed)
+    check_kernel(torch, timer, "decode_attention", dense, {},
+                 f"zamba2 edges S={S} stage={w} split={sp} "
+                 f"lengths={lengths}", timed=False)
+    check_same_bits(torch, "decode_attention", dense, {},
+                    "zamba2 edges, " + shapes_label(dense, {}))
+    for nc, Q in ((32, 256), (1, 200)):
+        seed += 1
+        args = ssd_inputs(torch, nc, Q=Q, dtype=dtype, seed=seed,
+                          **ZAMBA2_SSD_GEOM)
+        check_kernel(torch, timer, "ssd_chunk", args, {},
+                     f"zamba2-2.7b nc={nc} Q={Q}")
+    check_shape_refusals(torch, seed + 1, dtype)
+
+
+def check_shape_refusals(torch, seed, dtype):
+    """The head dims and groups the kernels are not built for raise
+    ``ValueError`` in their wrapper and launch nothing: B6 at D = 160 with
+    G = 4 (it takes 160 only at G = 1) and at D = 96, B5 at D = 96, B1 and
+    B2 at D = 160 (only B5 and B6 are built for zamba2's head dim)."""
+    H, Hkv, D = ZAMBA2_GEOM
+    cases = [
+        ("decode_attention", f"D={D} G=4",
+         (dense_decode_inputs(torch, H, H // 4, D, 1, 256, dtype, seed), {})),
+        ("decode_attention", "D=96 G=1",
+         (dense_decode_inputs(torch, H, Hkv, 96, 1, 256, dtype, seed), {})),
+        ("flash_attention", "D=96",
+         flash_inputs(torch, H, Hkv, 96, 1, 256, 0, dtype, seed)),
+        ("paged_decode_attention", f"D={D} G=1",
+         (paged_inputs(torch, H, Hkv, D, [40, 100], dtype, seed), {})),
+        ("packed_prefill_attention", f"D={D} G=1",
+         prefill_inputs(torch, H, Hkv, D, 64, dtype, seed)),
+    ]
+    for name, label, (args, kw) in cases:
+        fn = kernel_functions()[name]
+        before = fn.launches
+        try:
+            fn(*args, **kw)
+            refused = False
+        except ValueError:
+            refused = True
+        ok = refused and fn.launches == before
+        emit("shape_refusal", name=name, inputs=label,
+             dtype=dtype_name(args[0]), refused=refused, ok=ok)
+        if not ok:
+            FAILED.append(f"{name} [{label}]: not refused")
 
 
 def require_all_agree(phase: str) -> None:
@@ -2018,6 +2126,8 @@ ON_PATH = {"serve": ("paged_decode_attention", "packed_prefill_attention"),
            "serve_dense_packed": ("packed_prefill_attention",
                                   "decode_attention"),
            "serve_ssm": ("ssd_chunk",),
+           "serve_hybrid": ("flash_attention", "decode_attention",
+                            "ssd_chunk"),
            "serve_prefix_spec": ("paged_decode_attention",
                                  "packed_prefill_attention"),
            "serve_prefix_spec_quantized": ("gemv", "paged_decode_attention_q4",
@@ -2642,6 +2752,107 @@ def serve_ssm_phase(torch, timer):
                   median([r["wall_s"] for r in rounds]), of="serve_ssm")
     prefill_share(torch, eng, prompts[1:])
     del eng, probe, params, args
+    free_device_memory(torch)
+    return main
+
+
+def hybrid_prompts(cfg):
+    """A 24-token warm-up prompt, then the four served prompts of the
+    zamba2 phase: three above B5's 2048-token threshold and multiples of
+    the 256-token SSD chunk, and one short chunk on the plain attention
+    path."""
+    import numpy as np
+    rng = np.random.default_rng(4)
+    return [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+            for n in (24, 8192, 4096, 2304, 200)]
+
+
+def serve_hybrid_phase(torch, timer):
+    """zamba2-2.7b at full width (54 Mamba-2 layers, d_model 2560, the
+    shared attention block 5120 wide at 32 heads of 160, bf16; random
+    seeded weights) on the dense arena (max_len 8448, max_batch 4) with
+    whole-prompt prefill, two rounds: every prompt's every SSM layer runs
+    B7 once (on its tensor-core route), every prompt above 2048 tokens
+    runs B5 in each of the 9 shared blocks (on its tensor-core route),
+    every decode step B6 in each shared block; no other kernel and no
+    plain version.  B5 (the 8192-token prompt's first shared block), B6
+    (the first shared block of the first decode step with all four
+    requests decoding) and B7 (that prompt's first SSM layer) are
+    re-checked at those inputs and timed beside SDPA.  No profile line:
+    each costs about a minute."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import (_shared_geometry, build_plan,
+                                                init_params)
+    from repro_torch.serving.scheduler import PhaseAwareConfig
+
+    cfg = dataclasses.replace(get_config("zamba2-2.7b"), dtype="bfloat16")
+    L = cfg.n_layers
+    n_shared = sum(run.kind == "shared_attn" for run in build_plan(cfg))
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    torch.cuda.synchronize()
+    t_init = time.monotonic() - t0
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in _leaves(params)) / 1e9
+    prompts = hybrid_prompts(cfg)
+    n_prompts = len(prompts) - 1
+    n_long = sum(len(p) > 2048 for p in prompts[1:])
+    eng = make_engine(torch, cfg, params, DEV, paged=False, max_batch=4,
+                      max_len=HYBRID_MAX_LEN,
+                      phase=PhaseAwareConfig(prefill_chunk=0))
+    shared_kv_gb = sum(leaf.numel() * leaf.element_size()
+                       for run, c in zip(build_plan(cfg), eng.cache)
+                       if run.kind == "shared_attn"
+                       for leaf in c.values()) / 1e9
+    t0 = time.monotonic()
+    # the probe's "layer" is a shared block: B6's kept inputs are the first
+    # block's of the busiest decode step
+    rounds, probe, launches, log = serve_rounds(torch, eng, prompts,
+                                                ROUNDS_HYBRID, n_shared)
+    if probe.steps["prefill"] != n_prompts * ROUNDS_HYBRID:
+        raise AssertionError(f"serve_hybrid: {probe.steps['prefill']} "
+                             "prefill steps, expected one per prompt and "
+                             "round")
+    expect = {name: 0 for name in kernel_functions()}
+    expect["ssd_chunk"] = L * n_prompts * ROUNDS_HYBRID
+    expect["flash_attention"] = n_shared * n_long * ROUNDS_HYBRID
+    expect["decode_attention"] = n_shared * probe.steps["decode"]
+    require_launches("serve_hybrid", launches, expect)
+    require_routes("serve_hybrid", probe.routes, launches,
+                   {"flash_attention": "wgmma", "ssd_chunk": "mma"})
+    T0 = len(prompts[1])
+    fa_args, fa_kw = probe.inputs["flash_attention"][0]
+    _, nh, dh = _shared_geometry(cfg)
+    if tuple(fa_args[0].shape) != (1, nh, T0, dh):
+        raise AssertionError(f"serve_hybrid: the first B5 launch had q "
+                             f"{tuple(fa_args[0].shape)}, not the {T0}-token "
+                             "prompt's first shared block")
+    main = {"flash_attention": recheck(
+                torch, timer, "flash_attention", fa_args, fa_kw,
+                launches["flash_attention"],
+                f"serve_hybrid main path, {T0}-token prompt, shared block 0"),
+            "decode_attention": recheck(
+                torch, timer, "decode_attention",
+                *probe.inputs["decode_attention"][0],
+                launches["decode_attention"],
+                "serve_hybrid main path, busiest decode step, shared "
+                "block 0"),
+            "ssd_chunk": recheck(
+                torch, timer, "ssd_chunk", *probe.inputs["ssd_chunk"][0],
+                launches["ssd_chunk"],
+                f"serve_hybrid main path, {T0}-token prompt, layer 0")}
+    require_all_agree("serve_hybrid")
+    emit("serve_hybrid", **serve_row(
+        torch, cfg, prompts, rounds, probe, launches, log,
+        arena=f"dense [4 x {HYBRID_MAX_LEN}]", prefill_chunk=0,
+        shared_blocks=n_shared, weights_gb=weights_gb,
+        shared_kv_gb=shared_kv_gb,
+        state_reserved_gb=eng.kv_bytes()["reserved"] / 1e9, init_s=t_init,
+        wall_s=time.monotonic() - t0,
+        d160={name: {k: main[name][k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")} for name in main}))
+    del eng, probe, params, fa_args
     free_device_memory(torch)
     return main
 
@@ -4094,6 +4305,7 @@ def main() -> int:
                          timer)
     main_dense = run("serve_dense", serve_dense_phase, torch, timer)
     main_ssm = run("serve_ssm", serve_ssm_phase, torch, timer)
+    run("serve_hybrid", serve_hybrid_phase, torch, timer)
     run("preempt", preempt_phase, torch)
     run("parity", parity_phase, torch)
     if failed:

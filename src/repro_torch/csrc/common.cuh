@@ -39,11 +39,12 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f32<T>(from_f32<T>(x));
 }
 
-// Opt a kernel in to more than 48 KB of dynamic shared memory when it needs
-// it (Hopper allows up to 227 KB per block).
+// Opt a kernel in to `bytes` of dynamic shared memory when, with the
+// `static_bytes` of its __shared__ arrays, it needs more than the 48 KB a
+// block gets without (Hopper allows up to 227 KB per block).
 template <typename K>
-inline cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+inline cudaError_t allow_smem(K kernel, size_t bytes, size_t static_bytes = 0) {
+  if (bytes + static_bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }

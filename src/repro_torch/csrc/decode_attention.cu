@@ -42,13 +42,13 @@ struct Launch {
   template <typename T, int kD, int kG>
   cudaError_t operator()() const {
     if (!decode_split::plan_fits<T, kD, kG>(a, quantum, stages)) return cudaErrorInvalidValue;
-    // the ring is dynamic shared memory; with the block's static arrays it
-    // is more than the default 48 KB
+    // the ring is dynamic shared memory (64 KB; 80 KB at D = 160); with the
+    // block's static arrays it is more than the default 48 KB
+    constexpr int kRing = decode_split::Geom<T, kD>::kRing;
     cudaError_t err = cudaFuncSetAttribute(dense_decode_kernel<T, kD, kG>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           decode_split::kRingBytes);
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kRing);
     if (err != cudaSuccess) return err;
-    dense_decode_kernel<T, kD, kG><<<grid, kThreads, decode_split::kRingBytes, stream>>>(a, rows);
+    dense_decode_kernel<T, kD, kG><<<grid, kThreads, kRing, stream>>>(a, rows);
     return cudaGetLastError();
   }
 };
@@ -59,8 +59,8 @@ struct Launch {
 // int32; out [B,H,D]; part_acc [B,Hkv,n_split_max,G,D] and part_ml
 // [B,Hkv,n_split_max,G,2] f32 scratch, counters [B,Hkv] uint32 scratch
 // that is zero (and left zero); the plan of kernels/decode_attention.py
-// (quantum, stages, target, n_split_max, grid); D 16 or 128, G = H / Hkv
-// 1 or 4, B at most 512.  All contiguous, all on the stream's
+// (quantum, stages, target, n_split_max, grid); D 16 or 128 with G = H /
+// Hkv 1 or 4, or D 160 with G 1 (zamba2's shared block); B at most 512.  All contiguous, all on the stream's
 // device.  Returns the CUDA error code of the launch (0 on success).
 extern "C" int decode_attention(int dtype, const void* q, const void* k_cache,
                                 const void* v_cache, const void* lengths, void* out,
@@ -91,5 +91,5 @@ extern "C" int decode_attention(int dtype, const void* q, const void* k_cache,
   f.stages = stages;
   f.grid = grid;
   f.stream = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(decode_split::dispatch(dtype, D, H / Hkv, f));
+  return static_cast<int>(decode_split::dispatch_dense(dtype, D, H / Hkv, f));
 }

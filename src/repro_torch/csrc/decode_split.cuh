@@ -28,7 +28,12 @@
 // rings a block).  Each lane copies 16-byte pieces of the chunk's rows with
 // cp.async, so one stage is in flight while another is computed (bf16: 2
 // stages of 8 KB a warp; f32 and packed int4: 4 of 4 KB, int4 with each
-// token's two f32 scales beside its rows); cp.async.wait_group and a warp
+// token's two f32 scales beside its rows).  A row's pieces are spread over
+// a group of lanes that divides the warp: one piece a lane at D = 16 and
+// 128; at D = 160 (B6 alone, zamba2's shared block) a row is 20 pieces in
+// bf16 and 40 in f32, so 4 and 8 lanes take 5 each, and a stage that holds
+// fewer than a whole 16-token tile (bf16) or pass (f32) grows to hold one
+// (10 KB and 5 KB: 80 KB of rings a block); cp.async.wait_group and a warp
 // barrier order the copies before the reads.  A token at or past the
 // length, or on an unallocated page, is never read from device memory: its
 // pieces are zero-filled and its bit in the chunk's mask is 0, so its p is
@@ -72,23 +77,42 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kRingBytes = 64 * 1024;       // the warps' rings: dynamic smem
 constexpr int kMaxBatch = 512;              // sequences a call
 
+// the fewest 16-byte pieces of a row each lane copies so that the lanes
+// over one row divide a warp's 32: 1 for rows of 1-32 pieces in a power of
+// two, 5 for 20 (bf16 at D = 160) and 40 (f32 at D = 160)
+constexpr int lane_pieces(int pieces) {
+  int p = 1;
+  while (pieces % p != 0 || 32 % (pieces / p) != 0) ++p;
+  return p;
+}
+
 // how a (T, D) instantiation cuts its ring into stages, chunks into tokens
 // and rows over lanes: bf16 in 2 stages of 8 KB a warp (16-token tiles for
-// the tensor cores), f32 in 4 of 4 KB; at most 64 tokens a chunk
+// the tensor cores), f32 in 4 of 4 KB — each grown to one whole tile
+// (bf16) or pass of the lanes (f32) where that is more; at most 64 tokens
+// a chunk
 template <typename T, int kD>
 struct Geom {
   static constexpr int kSize = static_cast<int>(sizeof(T));
   static constexpr int kStages = kSize == 2 ? 2 : 4;
-  static constexpr int kSlotBytes = kRingBytes / (kWarps * kStages);
-  static constexpr int kWarpTok =
-      kSlotBytes / (2 * kD * kSize) < 64 ? kSlotBytes / (2 * kD * kSize) : 64;
-  static constexpr int kHalf = kWarpTok * kD * kSize;  // V's offset in a stage
-  static constexpr int kVec = 16 / kSize;              // elements a piece
-  static constexpr int kRowLanes = kD / kVec;          // lanes over one row
+  static constexpr int kVec = 16 / kSize;                    // elements a piece
+  static constexpr int kPieces = kD / kVec;                  // pieces a row
+  static constexpr int kLanePieces = lane_pieces(kPieces);  // pieces a lane copies
+  static constexpr int kRowLanes = kPieces / kLanePieces;   // lanes over one row
   static constexpr int kRowsPerPass = 32 / kRowLanes;
+  static constexpr int kTile = kSize == 2 ? 16 : kRowsPerPass;  // a chunk's unit
+  static constexpr int kRow = 2 * kD * kSize;                // a token's K and V rows
+  static constexpr int kSlotBytes = kRingBytes / (kWarps * kStages) > kTile * kRow
+                                        ? kRingBytes / (kWarps * kStages)
+                                        : kTile * kRow;
+  static constexpr int kRing = kWarps * kStages * kSlotBytes;  // dynamic smem a block
+  static constexpr int kWarpTok =
+      (kSlotBytes / kRow < 64 ? kSlotBytes / kRow : 64) / kTile * kTile;
+  static constexpr int kHalf = kWarpTok * kD * kSize;  // V's offset in a stage
   static constexpr int kTokPerLane = kWarpTok / kRowsPerPass;
   static constexpr int kQuantum = kWarps * kWarpTok;   // split granularity
   static_assert(kRowLanes >= 1 && kRowLanes <= 32 && 32 % kRowLanes == 0, "row lanes");
+  static_assert(kTile % kRowsPerPass == 0, "whole passes a tile");
   static_assert(kTokPerLane >= 1 && kTokPerLane * kRowsPerPass == kWarpTok, "chunk");
 };
 
@@ -112,6 +136,7 @@ struct Q4Geom {
   static constexpr int kQuantum = kWarps * kWarpTok;             // split granularity
   static constexpr int kHalf = kWarpTok * kRowBytes;             // V's offset in a stage
   static constexpr int kScales = 2 * kHalf;                      // K scales, then V's
+  static constexpr int kRing = kRingBytes;                       // dynamic smem a block
   static_assert(kRowLanes >= 1 && 32 % kRowLanes == 0 && kRowBytes % kPiece == 0, "lanes");
   static_assert(kTokPerLane >= 1 && kScales % 16 == 0, "chunk");
   static_assert(kScales + 8 * kWarpTok <= kSlotBytes, "a stage fits its slot");
@@ -154,7 +179,7 @@ __host__ __device__ constexpr int combine_floats(int n_split) {
 }
 
 // one staged 16-byte piece: four f32
-__device__ __forceinline__ void load4(const unsigned char* p, float (&f)[4]) {
+__device__ __forceinline__ void load4(const unsigned char* p, float* f) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   f[0] = v.x;
   f[1] = v.y;
@@ -163,18 +188,23 @@ __device__ __forceinline__ void load4(const unsigned char* p, float (&f)[4]) {
 }
 
 // A lane's copies of token r of a chunk from cache row `row` (a token index,
-// -1: not a valid key, zero-filled and never read) of kv head h: its piece
-// `part` of the K row and of the V row, placed as walk W places them;
-// float and bf16 caches.
+// -1: not a valid key, zero-filled and never read) of kv head h: its share
+// `part` of the K row and of the V row — pieces part * kLanePieces + j —
+// placed as walk W places them; float and bf16 caches.
 template <typename T, int kD, typename W>
 __device__ __forceinline__ void copy_rows(unsigned char* st, const Args& a, long long row,
                                           int h, int r, int part) {
-  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
-  const size_t off =
-      row >= 0 ? (static_cast<size_t>(row) * a.Hkv + h) * kD + part * kVec : 0;
-  const int piece = W::at(r, part), n = row >= 0 ? 16 : 0;
-  cp_async16(st + piece, static_cast<const T*>(a.k) + off, n);
-  cp_async16(st + Geom<T, kD>::kHalf + piece, static_cast<const T*>(a.v) + off, n);
+  using Gm = Geom<T, kD>;
+  const size_t base = row >= 0 ? (static_cast<size_t>(row) * a.Hkv + h) * kD : 0;
+  const int n = row >= 0 ? 16 : 0;
+#pragma unroll
+  for (int j = 0; j < Gm::kLanePieces; ++j) {
+    const int pc = part * Gm::kLanePieces + j;
+    const size_t off = row >= 0 ? base + pc * Gm::kVec : 0;
+    const int piece = W::at(r, pc);
+    cp_async16(st + piece, static_cast<const T*>(a.k) + off, n);
+    cp_async16(st + Gm::kHalf + piece, static_cast<const T*>(a.v) + off, n);
+  }
 }
 
 // The last unit of (b, h) to finish: the partials of its `used` splits,
@@ -282,15 +312,17 @@ __device__ __noinline__ void combine(const Args& a, int b, int h, int used, floa
 // ---------------------------------------------------------------------------
 
 // f32 on the CUDA cores: kRowLanes lanes share a row, each lane reads back
-// exactly the pieces it copied; xor-shuffles finish each dot product.
+// exactly the kLanePieces pieces it copied (kW values); xor-shuffles finish
+// each dot product.
 template <int kD, int kG>
 struct CoreWalk {
   using Gm = Geom<float, kD>;
   static constexpr int kVec = Gm::kVec, kRowLanes = Gm::kRowLanes;
+  static constexpr int kLP = Gm::kLanePieces, kW = kLP * kVec;
   static constexpr int kRowsPerPass = Gm::kRowsPerPass, kTok = Gm::kTokPerLane;
-  float qf[kG][kVec], acc[kG][kVec], m[kG], l[kG];
+  float qf[kG][kW], acc[kG][kW], m[kG], l[kG];
 
-  __device__ __forceinline__ static int at(int r, int c) { return (r * kRowLanes + c) * 16; }
+  __device__ __forceinline__ static int at(int r, int c) { return (r * Gm::kPieces + c) * 16; }
   __device__ __forceinline__ static void copy(unsigned char* st, const Args& a, long long row,
                                               int h, int r, int part) {
     copy_rows<float, kD, CoreWalk>(st, a, row, h, r, part);
@@ -298,17 +330,23 @@ struct CoreWalk {
 
   // q: the first query head of the group
   __device__ __forceinline__ void start(const float* q, int lane) {
-    const float* qb = q + (lane % kRowLanes) * kVec;
+    const float* qb = q + (lane % kRowLanes) * kW;
 #pragma unroll
     for (int g = 0; g < kG; ++g) {
       m[g] = NEG_INF;
       l[g] = 0.f;
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) {
+      for (int j = 0; j < kW; ++j) {
         qf[g][j] = qb[g * kD + j];
         acc[g][j] = 0.f;
       }
     }
+  }
+
+  // this lane's first staged piece of token r of a chunk
+  __device__ __forceinline__ static const unsigned char* mine(const unsigned char* st, int r,
+                                                             int lane) {
+    return st + at(r, (lane % kRowLanes) * kLP);
   }
 
   __device__ __forceinline__ void chunk(const unsigned char* st, uint64_t valid, float scale,
@@ -317,13 +355,15 @@ struct CoreWalk {
     float s[kTok][kG];
 #pragma unroll
     for (int i = 0; i < kTok; ++i) {
-      float kf[kVec];
-      load4(st + (lane + 32 * i) * 16, kf);
+      float kf[kW];
+#pragma unroll
+      for (int j = 0; j < kLP; ++j)
+        load4(mine(st, grp + kRowsPerPass * i, lane) + 16 * j, kf + 4 * j);
 #pragma unroll
       for (int g = 0; g < kG; ++g) {
         float d = 0.f;
 #pragma unroll
-        for (int j = 0; j < kVec; ++j) d = fmaf(qf[g][j], kf[j], d);
+        for (int j = 0; j < kW; ++j) d = fmaf(qf[g][j], kf[j], d);
         s[i][g] = d;
       }
     }
@@ -355,16 +395,18 @@ struct CoreWalk {
       l[g] = l[g] * corr + sum;
       m[g] = m_new;
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) acc[g][j] *= corr;
+      for (int j = 0; j < kW; ++j) acc[g][j] *= corr;
     }
 #pragma unroll
     for (int i = 0; i < kTok; ++i) {
-      float vf[kVec];
-      load4(st + Gm::kHalf + (lane + 32 * i) * 16, vf);
+      float vf[kW];
+#pragma unroll
+      for (int j = 0; j < kLP; ++j)
+        load4(mine(st, grp + kRowsPerPass * i, lane) + Gm::kHalf + 16 * j, vf + 4 * j);
 #pragma unroll
       for (int g = 0; g < kG; ++g)
 #pragma unroll
-        for (int j = 0; j < kVec; ++j) acc[g][j] = fmaf(s[i][g], vf[j], acc[g][j]);
+        for (int j = 0; j < kW; ++j) acc[g][j] = fmaf(s[i][g], vf[j], acc[g][j]);
     }
   }
 
@@ -380,7 +422,7 @@ struct CoreWalk {
         const float c = expf(m[g] - mn), co = expf(mo - mn);
         l[g] = l[g] * c + lo * co;
 #pragma unroll
-        for (int j = 0; j < kVec; ++j) {
+        for (int j = 0; j < kW; ++j) {
           const float ao = __shfl_xor_sync(0xffffffffu, acc[g][j], o);
           acc[g][j] = acc[g][j] * c + ao * co;
         }
@@ -391,7 +433,7 @@ struct CoreWalk {
 #pragma unroll
       for (int g = 0; g < kG; ++g)
 #pragma unroll
-        for (int j = 0; j < kVec; ++j) xa[(warp * kG + g) * kD + lane * kVec + j] = acc[g][j];
+        for (int j = 0; j < kW; ++j) xa[(warp * kG + g) * kD + lane * kW + j] = acc[g][j];
     }
     if (lane == 0) {
 #pragma unroll
@@ -412,8 +454,9 @@ struct CoreWalk {
 // l / 4 and l / 4 + 8 and of O^T's rows (head dims), so the online-softmax
 // state of a head lives in the eight lanes of one l % 4, and a rescale
 // touches only a lane's own accumulators.  Pieces are stored with their
-// 16-byte column xor-ed by the row, so the 8 rows an ldmatrix reads fall in
-// 8 distinct bank groups.
+// 16-byte column xor-ed by the row within aligned groups of kSw pieces
+// (8 at D = 128, 4 at 160, whose row is 20 pieces), so the 8 rows an
+// ldmatrix reads fall in 8 distinct bank groups.
 template <int kD, int kG>
 struct MmaWalk {
   static_assert(kG <= 8, "the G heads are the 8 columns of B");
@@ -422,7 +465,7 @@ struct MmaWalk {
   static constexpr int kRowBytes = kD * 2;
   static constexpr int kSteps = kD / 16;          // 16-deep steps of S^T, 16-row tiles of O^T
   static constexpr int kTiles = Gm::kWarpTok / 16;  // 16-token tiles a chunk
-  static constexpr int kSw = kPieces < 8 ? kPieces : 8;
+  static constexpr int kSw = kPieces % 8 == 0 ? 8 : kPieces % 4 == 0 ? 4 : kPieces;
   static_assert(kTiles >= 1 && kTiles * 16 == Gm::kWarpTok, "whole 16-token tiles");
   uint32_t qb[kSteps][2];   // B fragments of Q^T: q[2 (l % 4) + {0,1} (+ 8)] of head l / 4
   float o[kSteps][4];       // O^T: dims l / 4 (+ 8) of each 16-dim tile, heads 2 (l % 4) + {0, 1}
@@ -879,7 +922,7 @@ inline bool plan_fits(const Args& a, int quantum, int stages) {
 // Calls f.template operator()<T, kD, kG>() for the dtype code, head dim and
 // group size the kernels are built for (f32 or bf16; D 16 or 128; G 1 or
 // 4: llama2-7b's and qwen3-8b's, full and reduced), else returns
-// cudaErrorInvalidValue.
+// cudaErrorInvalidValue.  B6 adds D = 160 at G = 1 (dispatch_dense).
 template <typename T, int kD, typename F>
 cudaError_t dispatch_g(int G, const F& f) {
   switch (G) {
@@ -900,6 +943,18 @@ template <typename F>
 cudaError_t dispatch(int dtype, int D, int G, const F& f) {
   if (dtype == DTYPE_F32) return dispatch_d<float>(D, G, f);
   if (dtype == DTYPE_BF16) return dispatch_d<__nv_bfloat16>(D, G, f);
+  return cudaErrorInvalidValue;
+}
+
+// B6's shapes: dispatch's, and zamba2's shared attention block (D = 160,
+// G = 1: its 32 query heads each have a kv head); B1 and B4 are not built
+// for it
+template <typename F>
+cudaError_t dispatch_dense(int dtype, int D, int G, const F& f) {
+  if (D != 160) return dispatch(dtype, D, G, f);
+  if (G != 1) return cudaErrorInvalidValue;
+  if (dtype == DTYPE_F32) return f.template operator()<float, 160, 1>();
+  if (dtype == DTYPE_BF16) return f.template operator()<__nv_bfloat16, 160, 1>();
   return cudaErrorInvalidValue;
 }
 

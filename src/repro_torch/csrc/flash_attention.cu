@@ -13,8 +13,10 @@
 //
 // Two routes behind one entry point, by dtype and head dim:
 //
-// bf16 at D = 64 or 128 (every full-width main path): flash_wgmma.cuh's
-// tensor-core step.  One block per (query tile of 128 rows = 128 / G tokens
+// bf16 at D = 64, 128 or 160 (every full-width main path; 160 is zamba2's
+// shared attention block, staged as three 64-column chunks whose last half
+// TMA fills with zeros, flash_wgmma.cuh): flash_wgmma.cuh's tensor-core
+// step.  One block per (query tile of 128 rows = 128 / G tokens
 // x the G heads of a GQA group, kv head h, batch row b): a producer warp
 // stages 64-key tiles of K and V by TMA into a ring of three stages, each
 // of k and v read through one 3-D tensor map over [B*Hkv, T, D] whose
@@ -100,7 +102,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
 }
 
 // ---------------------------------------------------------------------------
-// bf16, D = 64 or 128: tensor cores
+// bf16, D = 64, 128 or 160: tensor cores
 // ---------------------------------------------------------------------------
 
 template <int kD>
@@ -128,7 +130,8 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restric
   if (warp == fw::kProducerWarp) {
     const int q_lo = q0, q_hi = q0 + nq - 1;
     const int bh = b * Hkv + h;
-    constexpr uint32_t kBytes = 2u * fw::kBK * kD * 2;  // a K and a V tile
+    constexpr int kC = fw::Smem<kD>::kC;               // 64-column chunks a row
+    constexpr uint32_t kBytes = 2u * fw::kBK * kC * 64 * 2;  // a K and a V tile
     fw::Ring ring;
     for (int it = 0; it < n_tiles; ++it) {
       const int t0 = k_begin + it * fw::kBK;
@@ -145,7 +148,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restric
       if (lane == 0) sm.all_visible[ring.stage] = all;
       ring.publish(sm, lane, kBytes, fw::kBK, [&](uint64_t* bar, int st) {
 #pragma unroll
-        for (int c = 0; c < kD / 64; ++c) {
+        for (int c = 0; c < kC; ++c) {
           fw::tma_load_3d(&sm.k[st][c][0], &k_map, bar, c * 64, t0, bh);
           fw::tma_load_3d(&sm.v[st][c][0], &v_map, bar, c * 64, t0, bh);
         }
@@ -168,7 +171,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
                          int T_len, int H, int Hkv, int causal, int window, float scale,
                          cudaStream_t stream) {
   namespace fw = flash_wgmma;
-  // k, v seen as [B*Hkv][T][D]; boxes of 64 keys x 64 values
+  // k, v seen as [B*Hkv][T][D]; boxes of 64 keys x 64 values (at D = 160
+  // the third box of a row reads 32 values and 32 zeros)
   CUtensorMap k_map, v_map;
   const uint64_t rows = static_cast<uint64_t>(B) * Hkv, T = T_len;
   if (!fw::make_map(&k_map, k, kD, T, rows, kD, T * kD, fw::kBK, 1) ||
@@ -189,8 +193,9 @@ template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* out,
                      int B, int T_len, int H, int Hkv, int causal, int window,
                      float scale, cudaStream_t st) {
-  // the head dims of the configurations served: 16 (reduced), 128 (full);
-  // 64: the benchmark runner's kernel rows (benchmarks/kernel_micro.py)
+  // the head dims of the configurations served: 16 (reduced), 128 (full),
+  // 160 (zamba2's shared block); 64: the benchmark runner's kernel rows
+  // (benchmarks/kernel_micro.py)
   switch (D) {
     case 16:
       return launch<T, 16>(q, k, v, out, B, T_len, H, Hkv, causal, window, scale, st);
@@ -198,6 +203,8 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* o
       return launch<T, 64>(q, k, v, out, B, T_len, H, Hkv, causal, window, scale, st);
     case 128:
       return launch<T, 128>(q, k, v, out, B, T_len, H, Hkv, causal, window, scale, st);
+    case 160:
+      return launch<T, 160>(q, k, v, out, B, T_len, H, Hkv, causal, window, scale, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -206,10 +213,10 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* o
 }  // namespace
 
 // q [B,H,T,D]; k/v [B,Hkv,T,D]; out [B,H,T,D]; causal 0/1; window 0 (full)
-// or the sliding window.  G = H / Hkv must divide 64; D 16, 64 or 128.  All
-// contiguous, all on the stream's device.  `route` is the wrapper's choice
-// and the kernel launched: ROUTE_WGMMA (tensor cores) takes bf16 at D = 64
-// or 128 with q, k and v 16-byte aligned; ROUTE_TILE (CUDA cores) takes f32
+// or the sliding window.  G = H / Hkv must divide 64; D 16, 64, 128 or
+// 160.  All contiguous, all on the stream's device.  `route` is the
+// wrapper's choice and the kernel launched: ROUTE_WGMMA (tensor cores)
+// takes bf16 at D = 64, 128 or 160 with q, k and v 16-byte aligned; ROUTE_TILE (CUDA cores) takes f32
 // at any D and bf16 at D = 16.  Inputs the route cannot take are refused
 // with cudaErrorInvalidValue, nothing launched.  Returns the CUDA error code
 // of the launch (0 on success).
@@ -228,6 +235,9 @@ extern "C" int flash_attention(int dtype, int route, const void* q, const void* 
     if (D == 128)
       return static_cast<int>(
           launch_wgmma<128>(q, k, v, out, B, T_len, H, Hkv, causal, window, scale, st));
+    if (D == 160)
+      return static_cast<int>(
+          launch_wgmma<160>(q, k, v, out, B, T_len, H, Hkv, causal, window, scale, st));
   }
   if (route == ROUTE_TILE && dtype == DTYPE_F32)
     return static_cast<int>(launch_d<float>(D, q, k, v, out, B, T_len, H, Hkv, causal,

@@ -1,8 +1,20 @@
 // The tensor-core online-softmax step shared by the port's prefill
 // attention kernels (flash_attention.cu, packed_prefill_attention.cu) for
-// bf16 at head dim 64 and 128.  f32 (no IEEE tensor-core mode), the
-// reduced configurations' head dim 16, and pool pages of a size that is no
+// bf16 at head dim 64 and 128, and (flash_attention.cu alone) 160, zamba2's
+// shared block.  f32 (no IEEE tensor-core mode), the reduced
+// configurations' head dim 16, and pool pages of a size that is no
 // multiple of 8 take flash_tile.cuh instead.
+//
+// Head dim 160 is 2.5 of the 64-value (128-byte) chunks a swizzled tile
+// row is made of.  It is staged as three chunks: the third TMA box of each
+// K/V row reads columns 128-191 of a tensor map whose inner extent is 160,
+// so TMA fills columns 160-191 with zeros.  S = Q K^T runs only the 10
+// 16-deep steps of the real columns (Q's padding is never read); O += P V
+// runs at N = 192 (m64n192k16), whose last 32 columns are P times V's
+// zeros and are never stored.  The cost is a 96-float accumulator a thread
+// and 20 % more shared memory and P.V work than an exact 160; a 128 + 32
+// split would need two swizzle modes in one tile and an MN-major operand
+// narrower than its 64-wide swizzle atom, which this one avoids.
 //
 // What bounds both kernels once the prompt is long: operations, 4 D flops
 // per visible (query row, key) pair.  The CUDA-core tile runs every product
@@ -84,10 +96,11 @@ constexpr int kThreads = 128 * kWG + 32;
 constexpr int kChunk = 64 * 64;          // bf16 of 64 rows x 128 swizzled bytes
 constexpr int kChunkBytes = kChunk * 2;
 
-// the route's head dims: a row of a tile is kD / 64 chunks of 128 bytes
+// the route's head dims: a row of a tile is kC chunks of 128 bytes, kD
+// rounded up to a multiple of 64 (160: three, the last half padding)
 template <int kD>
 struct Smem {
-  static constexpr int kC = kD / 64;
+  static constexpr int kC = (kD + 63) / 64;
   bf16 q[kWG][kC][kChunk];
   bf16 k[kStages][kC][kChunk];
   bf16 v[kStages][kC][kChunk];
@@ -159,6 +172,33 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[64 x 192] += A[64 x 16] (registers) B[16 x 192] (shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4],
+                                        uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n"
+      "}\n"
+      : FW_OUT8(0), FW_OUT8(8), FW_OUT8(16), FW_OUT8(24), FW_OUT8(32), FW_OUT8(40),
+        FW_OUT8(48), FW_OUT8(56), FW_OUT8(64), FW_OUT8(72), FW_OUT8(80), FW_OUT8(88)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef FW_OUT8
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -192,7 +232,7 @@ struct Ring {
 // 32 lanes of the producer warp
 template <int kD>
 __device__ __forceinline__ void zero_rows(Smem<kD>& sm, int st, int lo, int hi, int lane) {
-  constexpr int kC = kD / 64;
+  constexpr int kC = Smem<kD>::kC;
   const int n = (hi - lo) * 8 * kC;  // 16-byte pieces per tensor
   const uint4 z = make_uint4(0, 0, 0, 0);
   for (int i = lane; i < n; i += 32) {
@@ -256,7 +296,7 @@ __device__ __forceinline__ void consume(Smem<kD>& sm, int wg, int n_tiles,
                                         const bf16* __restrict__ q, bf16* __restrict__ out,
                                         RowOffset offset, int BQ, int nq, int q_pos0,
                                         int window, bool causal, float scale_log2) {
-  constexpr int kC = kD / 64;
+  constexpr int kDp = 64 * Smem<kD>::kC;  // the P.V product's width (kD padded)
   const int t = threadIdx.x % 128;
   const int lane = t % 32;
 
@@ -277,9 +317,9 @@ __device__ __forceinline__ void consume(Smem<kD>& sm, int wg, int n_tiles,
   const bool live0 = r0 % BQ < nq, live1 = r1 % BQ < nq;
   const int c2 = 2 * (lane % 4);  // first of this thread's column pairs
 
-  float o[kD / 2];
+  float o[kDp / 2];
 #pragma unroll
-  for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < kDp / 2; ++i) o[i] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
   const uint64_t qd = desc(&sm.q[wg][0][0], 16, 1024);
 
@@ -345,7 +385,7 @@ __device__ __forceinline__ void consume(Smem<kD>& sm, int wg, int n_tiles,
     l0 = l0 * corr0 + sum0;
     l1 = l1 * corr1 + sum1;
 #pragma unroll
-    for (int j = 0; j < kD / 8; ++j) {
+    for (int j = 0; j < kDp / 8; ++j) {
       o[4 * j] *= corr0;
       o[4 * j + 1] *= corr0;
       o[4 * j + 2] *= corr1;

@@ -305,7 +305,9 @@ cudaError_t launch(const void* x, const void* dt, const void* A, const void* Bm,
                    cudaStream_t stream) {
   const size_t smem = sizeof(float) * (kStep * kLdT + kStep * P + N * kLdT +
                                        kStep * (N + 1));
-  cudaError_t err = allow_smem(ssd_y<T, P>, smem);
+  // beside ssd_y's own cs and dts (8 KB): at P = 64, N = 64 (zamba2) the
+  // two pass 48 KB though the dynamic part alone does not
+  cudaError_t err = allow_smem(ssd_y<T, P>, smem, sizeof(float) * 2 * kHeads * kMaxQ);
   if (err != cudaSuccess) return err;
   const int heads = (H + kHeads - 1) / kHeads;
   ssd_y<T, P><<<dim3(nc, (Q + kRows - 1) / kRows, heads), kThreads, smem, stream>>>(

@@ -41,6 +41,9 @@ _HEAD_DIMS = (16, 128)
 # query heads per kv head the kernels are instantiated for (llama2-7b,
 # qwen3-8b: full and reduced)
 _GROUPS = (1, 4)
+# B6 alone also takes zamba2's shared attention block: head dim 160 with
+# one query head per kv head (csrc/decode_split.cuh dispatch_dense)
+_DENSE_EXTRA = {160: (1,)}
 # as csrc/decode_split.cuh has them
 _WARPS = 4              # warps a block (kWarps)
 _RING_BYTES = 64 << 10  # the warps' rings (kRingBytes)
@@ -66,6 +69,8 @@ class DecodePlan:
     in 4 KB, in whole passes of the lanes that copy them); a split is a
     multiple of it.  ``stages``: chunks a warp keeps in its ring (bf16 2,
     f32 and int4 4; 64 KB of rings a block either way).
+    At head dim 160 a bf16 stage holds one 16-token tile (10 KB) and an
+    f32 stage one pass of the lanes, 4 tokens (5 KB): 80 KB of rings.
     ``target``: units the longest sequence is cut into, about
     (``split_for``).
     ``n_split_max``: the most splits any sequence of the call can have,
@@ -104,8 +109,14 @@ def ring_geometry(dtype: torch.dtype, D: int) -> Tuple[int, int]:
         return fit // rows_per_pass * rows_per_pass, stages
     item = dtype.itemsize
     stages = 2 if item == 2 else 4           # Geom::kStages
-    slot = _RING_BYTES // (_WARPS * stages)  # Geom::kSlotBytes
-    return min(_MAX_WARP_TOKENS, slot // (2 * D * item)), stages
+    pieces = D * item // 16                  # Geom::kPieces
+    lane_pieces = next(p for p in range(1, pieces + 1)
+                       if pieces % p == 0 and 32 % (pieces // p) == 0)
+    rows_per_pass = 32 // (pieces // lane_pieces)
+    tile = 16 if item == 2 else rows_per_pass  # Geom::kTile
+    row = 2 * D * item                       # Geom::kRow
+    slot = max(_RING_BYTES // (_WARPS * stages), tile * row)  # kSlotBytes
+    return min(_MAX_WARP_TOKENS, slot // row) // tile * tile, stages
 
 
 @functools.lru_cache(maxsize=256)
@@ -174,10 +185,11 @@ def _walk_call(name, q, k, v, capacity, Hkv, kv_dtype):
     their plan, scratch and output."""
     B, H, D = q.shape
     G = H // Hkv
-    if G not in _GROUPS or B > _MAX_BATCH:
+    groups = _DENSE_EXTRA.get(D, _GROUPS)
+    if G not in groups or B > _MAX_BATCH:
         raise ValueError(f"{name}: {H} query heads over {Hkv} kv heads "
-                         f"(groups of {_GROUPS}), batch {B} (at most "
-                         f"{_MAX_BATCH})")
+                         f"(groups of {groups} at head dim {D}), batch {B} "
+                         f"(at most {_MAX_BATCH})")
     _build.check_tensors(name, [q], q.dtype, q.device)
     _build.check_tensors(name, [k, v], kv_dtype, q.device)
     if not _build.aligned16(q, k, v):
@@ -268,11 +280,12 @@ def decode_attention(q, k_cache, v_cache, lengths):
     _check_query(name, q)
     B, H, D = q.shape
     Bc, S, Hkv, Dk = k_cache.shape
+    dims = _HEAD_DIMS + tuple(_DENSE_EXTRA)
     if (v_cache.shape != k_cache.shape or Bc != B or Dk != D or H % Hkv
-            or D not in _HEAD_DIMS):
+            or D not in dims):
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k "
                          f"{tuple(k_cache.shape)} v {tuple(v_cache.shape)} "
-                         f"(head dim one of {_HEAD_DIMS})")
+                         f"(head dim one of {dims})")
     if lengths.shape != (B,):
         raise ValueError(f"{name}: lengths {tuple(lengths.shape)} for batch "
                          f"{B}")

@@ -12,7 +12,8 @@ versions.
 
 Each kernel has two routes behind its one C entry point, and ``route``
 alone chooses between them: bf16 at head dim 64 or 128 — every full-width
-main path — runs on the tensor cores (wgmma, K/V staged by TMA,
+main path — and, for the flash kernel, 160 (zamba2's shared attention
+block) runs on the tensor cores (wgmma, K/V staged by TMA,
 ``csrc/flash_wgmma.cuh``); f32 at any head dim, bf16 at 16, and the packed
 kernel over pages of a size that is no multiple of 8, run on the CUDA cores
 (``csrc/flash_tile.cuh``).  The wrapper passes its choice to the C entry
@@ -33,11 +34,14 @@ from repro_torch.kernels import _build
 # (token, head) query rows per block of both kernels: G = H / Hkv must
 # divide it
 _ROWS = 64
-# head dims the kernels are instantiated for: the reduced (16) and full (128)
-# configurations, and the benchmark runner's kernel rows (64)
-_HEAD_DIMS = (16, 64, 128)
+# head dims the flash kernel is instantiated for: the reduced (16) and full
+# (128) configurations, zamba2's shared attention block (160), and the
+# benchmark runner's kernel rows (64)
+_HEAD_DIMS = (16, 64, 128, 160)
+# the packed-prefill kernel's: no model with head dim 160 chunks its prefill
+_PACKED_HEAD_DIMS = (16, 64, 128)
 # the head dims of the tensor-core route, in bf16
-_TENSOR_CORE_DIMS = (64, 128)
+_TENSOR_CORE_DIMS = (64, 128, 160)
 # the alignment TMA needs of a tensor's base address, in bytes
 ALIGN = 16
 # route -> the route code of csrc/common.cuh
@@ -47,8 +51,8 @@ ROUTE_CODES = {"tile": 0, "wgmma": 1}
 def route(dtype: torch.dtype, head_dim: int, page_size: int = 8) -> str:
     """The route the C entry points take for inputs of ``dtype`` at head
     dim ``head_dim`` (and, for the packed kernel, pool pages of
-    ``page_size`` tokens): "wgmma" (tensor cores) for bf16 at 64 or 128
-    over pages that are a multiple of 8 tokens (the route stages a page in
+    ``page_size`` tokens): "wgmma" (tensor cores) for bf16 at 64, 128 or
+    160 over pages that are a multiple of 8 tokens (the route stages a page in
     TMA boxes of at least 8 rows), else "tile" (CUDA cores)."""
     if (dtype == torch.bfloat16 and head_dim in _TENSOR_CORE_DIMS
             and page_size % 8 == 0):
@@ -119,11 +123,11 @@ def packed_prefill_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
     n_pages, P, Hkv, Dk = k_pages.shape
     if (k_new.shape != (T, Hkv, D) or v_new.shape != k_new.shape
             or v_pages.shape != k_pages.shape or Dk != D or H % Hkv
-            or _ROWS % (H // Hkv) or D not in _HEAD_DIMS):
+            or _ROWS % (H // Hkv) or D not in _PACKED_HEAD_DIMS):
         raise ValueError(
             f"{name}: shapes q {tuple(q.shape)} k_new {tuple(k_new.shape)} "
             f"pages {tuple(k_pages.shape)} (H/Hkv must divide {_ROWS}, head "
-            f"dim one of {_HEAD_DIMS})")
+            f"dim one of {_PACKED_HEAD_DIMS})")
     N, W = block_tables.shape
     for t in (seg_starts, seg_offsets, seg_lengths):
         if t.shape != (N,):

@@ -11,6 +11,9 @@ main path of src/repro/launch/serve.py).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
       --no-paged --max-len 8448 --prefill-chunk 0 --prompt-len 8192
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+      --no-paged --max-len 8448 --prefill-chunk 0 --prompt-len 8192
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --reduced --device cpu          # the plain PyTorch path, no card
 
@@ -24,10 +27,13 @@ the int4 paged decode kernel); quantized KV needs the paged pool.
 slot (the JAX CLI's default; this one defaults to the paged pool).  There
 ``--prefill-chunk 0`` prefills every prompt whole, in the flash-attention
 kernel above 2048 tokens, and decode runs in the dense flash-decode kernel.
-``--arch mamba2-2.7b`` serves only there (``--no-paged --prefill-chunk
-0``, as the reference does): its prefill runs the SSD chunk kernel, and a
-prompt longer than the SSD chunk (256 tokens; 32 with ``--reduced``) must be
-a multiple of it, as in the reference.
+``--arch mamba2-2.7b`` and ``--arch zamba2-2.7b`` serve only there
+(``--no-paged --prefill-chunk 0``, as the reference does): their prefill
+runs the SSD chunk kernel, and a prompt longer than the SSD chunk (256
+tokens; 32 with ``--reduced``) must be a multiple of it, as in the
+reference.  zamba2's shared attention block (head dim 160) prefills in the
+flash-attention kernel above 2048 tokens and decodes in the dense
+flash-decode kernel.
 
 ``--prefix-cache`` reuses shared-prompt KV pages copy-on-write through a
 radix prefix cache (paged pool only); ``--shared-prefix N`` opens every
@@ -105,7 +111,8 @@ import numpy as np
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-8b",
-                    choices=["qwen3-8b", "llama2-7b", "mamba2-2.7b"])
+                    choices=["qwen3-8b", "llama2-7b", "mamba2-2.7b",
+                             "zamba2-2.7b"])
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config in f32")
     ap.add_argument("--requests", type=int, default=4)

@@ -9,7 +9,9 @@ run ``runs[r]`` with every leaf stacked [n_layers, ...] — ``ln1``/``ln2``
 {"in_proj","conv_w","conv_b","A_log","D","dt_bias","norm_scale","out_proj"}
 (and ``ln2``/``ffn`` where the model has an FFN) for a Mamba-2 run, whose
 A_log, D and dt_bias the reference keeps in f32 whatever the model dtype
-(src/repro/models/ssm.py:24).  A weight the reference quantized
+(src/repro/models/ssm.py:24).  A Zamba2 hybrid's shared-attention runs are
+empty (``{}``): their one block is ``shared_attn`` {``ln1``, ``attn``,
+``ln2``, ``ffn``, ``down``}, unstacked.  A weight the reference quantized
 (``quantize_params``) is a ``{"q": int8, "scale": f32}`` leaf and keeps
 those dtypes.  The converter takes that pytree as numpy arrays (the caller
 converts the JAX arrays), checks it, and copies each leaf onto the device.
@@ -28,6 +30,7 @@ _RUN_KEYS = {"ln1": {"scale"}, "ln2": {"scale"},
 _SSM_RUN_KEYS = {"ln1": {"scale"},
                  "ssm": {"in_proj", "conv_w", "conv_b", "A_log", "D",
                          "dt_bias", "norm_scale", "out_proj"}}
+_SHARED_KEYS = dict(_RUN_KEYS, down=None)
 # the SSM leaves the reference keeps in f32 in a model of any dtype
 _F32_LEAVES = {"A_log", "D", "dt_bias"}
 
@@ -61,14 +64,27 @@ def params_from_jax(np_pytree: Any, device,
     missing = {"embed", "final_norm", "runs"} - set(np_pytree)
     if missing:
         raise ValueError(f"params_from_jax: missing {sorted(missing)}")
+    shared = any(not run for run in np_pytree["runs"])
+    if shared or "shared_attn" in np_pytree:
+        _check_keys(np_pytree.get("shared_attn"), _SHARED_KEYS,
+                    "shared_attn")
     for r, run in enumerate(np_pytree["runs"]):
+        if not run:                       # a shared run: its weights shared
+            continue
         need = dict(_SSM_RUN_KEYS if "ssm" in run else _RUN_KEYS)
         if "ssm" in run and "ffn" in run:
             need.update(ln2=_RUN_KEYS["ln2"], ffn=_RUN_KEYS["ffn"])
-        for key, leaves in need.items():
-            if key not in run or not leaves <= set(run[key]):
-                raise ValueError(
-                    f"params_from_jax: runs[{r}][{key!r}] needs "
-                    f"{sorted(leaves)} (only dense attention and Mamba-2 "
-                    "runs are ported so far)")
+        _check_keys(run, need, f"runs[{r}]")
     return _tree(dict(np_pytree), device, dtype)
+
+
+def _check_keys(tree, need, where: str) -> None:
+    """``tree`` holds every key of ``need`` and, under each, its leaves
+    (None: the key is a leaf itself, a matrix or a quantized leaf)."""
+    for key, leaves in need.items():
+        if (not isinstance(tree, dict) or key not in tree
+                or (leaves is not None and not leaves <= set(tree[key]))):
+            raise ValueError(
+                f"params_from_jax: {where}[{key!r}] needs "
+                f"{sorted(leaves or ())} (only dense attention, Mamba-2 and "
+                "Zamba2 shared-attention runs are ported so far)")

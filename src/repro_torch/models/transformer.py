@@ -1,7 +1,7 @@
-"""Model assembly for serving (port of the dense-attention and Mamba-2
-parts of src/repro/models/transformer.py): whole-prompt prefill, and
-one-token decode and packed chunked prefill over either the paged pool or
-the dense per-slot decode arena; a padded [N, C] chunk batch over the
+"""Model assembly for serving (port of the dense-attention, Mamba-2 and
+Zamba2 parts of src/repro/models/transformer.py): whole-prompt prefill,
+and one-token decode and packed chunked prefill over either the paged pool
+or the dense per-slot decode arena; a padded [N, C] chunk batch over the
 paged pool (``forward_chunk``: the speculative verify window, and prefill
 with ``packed_prefill=False``).
 
@@ -11,13 +11,17 @@ in the reference's pytree layout.  The reference scans each run with
 ``jax.lax.scan``; here a Python loop walks layer views ``runs[r][...][l]``.
 
 Supported plans: all-attention, dense-FFN, single-codebook, no MLA — the
-paper's llama2-7b and qwen3-8b — and all-SSM (mamba2-2.7b), whose runs
-serve only on the dense arena with whole-prompt prefill, as in the
-reference.  The other families arrive with ROADMAP queue A, item 11.
+paper's llama2-7b and qwen3-8b — all-SSM (mamba2-2.7b), and the Zamba2
+hybrid (zamba2-2.7b: runs of Mamba-2 layers with ONE shared attention
+block, its weights stored once in ``params["shared_attn"]``, applied after
+each run to ``concat([h, embed0])``).  SSM and hybrid plans serve only on
+the dense arena with whole-prompt prefill, as in the reference.  The other
+families arrive with ROADMAP queue A, item 11.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -30,6 +34,7 @@ from repro_torch.models.layers import (
     dense_init,
     embed_init,
     ffn,
+    matmul,
     matmul_f32,
     rmsnorm,
     torch_dtype,
@@ -54,18 +59,31 @@ class RunSpec:
 
 
 def build_plan(cfg: ModelConfig) -> List[RunSpec]:
-    """Runs of an all-attention or all-SSM plan (the reference's
-    ``build_plan``, src/repro/models/transformer.py:64, for the families
+    """Runs of an all-attention, all-SSM or Zamba2 plan (the reference's
+    ``build_plan``, src/repro/models/transformer.py:63, for the families
     this port serves): an SSM layer of a model without an FFN (d_ff == 0)
-    has ffn kind "none"."""
+    has ffn kind "none"; a hybrid is ``shared_attn_every``-layer SSM runs,
+    each followed by a shared-attention run (no layers of its own), and a
+    last SSM run of the layers left over."""
     check_supported(cfg)
+    runs: List[RunSpec] = []
+    if cfg.family == "hybrid":
+        every = cfg.hybrid.shared_attn_every
+        n_groups = cfg.n_layers // every
+        for g in range(n_groups):
+            runs.append(RunSpec("ssm", every, "none", layer_start=g * every))
+            runs.append(RunSpec("shared_attn", 0, "none"))
+        rem = cfg.n_layers - n_groups * every
+        if rem:
+            runs.append(RunSpec("ssm", rem, "none",
+                                layer_start=n_groups * every))
+        return runs
     kinds = cfg.layer_kinds()
 
     def sig(i: int) -> Tuple[str, str]:
         k = kinds[i]
         return (k, "none" if (k == "ssm" and cfg.d_ff == 0) else "dense")
 
-    runs: List[RunSpec] = []
     i = 0
     while i < cfg.n_layers:
         kind, ffn_kind = sig(i)
@@ -84,14 +102,19 @@ def build_plan(cfg: ModelConfig) -> List[RunSpec]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a model family this port does not serve yet."""
-    if (cfg.family not in ("dense", "ssm") or cfg.mla.enabled
-            or cfg.moe.enabled or cfg.hybrid.enabled or cfg.n_codebooks > 1
+    """Raise for a model family this port does not serve yet, and for a
+    config whose family and sub-configs disagree (a "hybrid" without
+    ``hybrid.enabled``, an SSM family without ``ssm.enabled``, or the
+    other way round)."""
+    if (cfg.family not in ("dense", "ssm", "hybrid") or cfg.mla.enabled
+            or cfg.moe.enabled or cfg.n_codebooks > 1
             or cfg.frontend != "none"
-            or (cfg.family == "ssm") != cfg.ssm.enabled):
+            or (cfg.family == "hybrid") != cfg.hybrid.enabled
+            or (cfg.family in ("ssm", "hybrid")) != cfg.ssm.enabled):
         raise NotImplementedError(
-            f"{cfg.name}: only dense all-attention models and Mamba-2 are "
-            "ported so far (other architectures: ROADMAP queue A, item 11)")
+            f"{cfg.name}: only dense all-attention models, Mamba-2 and "
+            "Zamba2 are ported so far (other architectures: ROADMAP queue "
+            "A, item 11)")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -114,13 +137,25 @@ def supports_paged(cfg: ModelConfig) -> bool:
     return all(run.kind == "attn" for run in build_plan(cfg))
 
 
+def _shared_geometry(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(width, heads, head dim) of the Zamba2 shared block: it reads
+    ``concat([h, embed0])`` (2 d_model wide) when ``concat_embedding``,
+    with H = Hkv heads of width / H."""
+    h = cfg.hybrid
+    d_in = cfg.d_model * (2 if h.concat_embedding else 1)
+    return d_in, h.shared_attn_n_heads, d_in // h.shared_attn_n_heads
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device) -> List[Any]:
     """The dense decode arena, zeros (the reference's ``init_cache``,
     src/repro/models/transformer.py:208): per attention run {"k", "v"} of
     [L, batch, cache_len(run, seq_len), Hkv, D] in the model dtype; per SSM
     run {"conv": [L, batch, d_conv - 1, conv_dim] in the model dtype,
-    "state": [L, batch, H, P, N] f32}."""
+    "state": [L, batch, H, P, N] f32}; per shared-attention run {"k", "v"}
+    of [batch, seq_len, H, dh] in the model dtype, batch leading and no
+    layer axis.  On the ``meta`` device it allocates nothing
+    (``cache_specs``)."""
     dtype = torch_dtype(cfg.dtype)
     caches: List[Any] = []
     for run in build_plan(cfg):
@@ -135,11 +170,22 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                                       s.d_state), dtype=torch.float32,
                                      device=device)})
             continue
-        shape = (run.n_layers, batch, cache_len(run, seq_len),
-                 cfg.n_kv_heads, cfg.d_head)
+        if run.kind == "shared_attn":
+            _, nh, dh = _shared_geometry(cfg)
+            shape = (batch, seq_len, nh, dh)
+        else:
+            shape = (run.n_layers, batch, cache_len(run, seq_len),
+                     cfg.n_kv_heads, cfg.d_head)
         caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
                        "v": torch.zeros(shape, dtype=dtype, device=device)})
     return caches
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> List[Any]:
+    """``init_cache``'s tree as tensors on the ``meta`` device: shapes and
+    dtypes, nothing allocated (the reference's ``cache_specs``,
+    src/repro/models/transformer.py:243)."""
+    return init_cache(cfg, batch, seq_len, "meta")
 
 
 # ---------------------------------------------------------------------------
@@ -151,9 +197,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device) -> Params:
     """Random weights drawn from ``generator`` directly on ``device``, with
     the reference's pytree layout, shapes and init scales
-    (src/repro/models/transformer.py:119,162): truncated-normal fan-in
+    (src/repro/models/transformer.py:119,144,162): truncated-normal fan-in
     matmul weights, 0.02-normal embedding and LM head, unit norms; an SSM
-    layer's block as ``ssm.ssm_init`` draws it."""
+    layer's block as ``ssm.ssm_init`` draws it; a hybrid's shared block
+    drawn once into ``params["shared_attn"]``, each shared run's
+    ``runs[r]`` empty."""
     dtype = torch_dtype(cfg.dtype)
     d, V = cfg.d_model, padded_vocab(cfg)
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -164,6 +212,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
 
+    def ffn_stack(L, width):
+        return {"wi_gate": empty(L, width, cfg.d_ff),
+                "wi_up": empty(L, width, cfg.d_ff),
+                "wo": empty(L, cfg.d_ff, width)}
+
     params: Params = {"embed": embed_init(empty(V, d), generator)}
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(empty(d, V), generator)
@@ -171,18 +224,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     runs = []
     for run in build_plan(cfg):
         L = run.n_layers
-        ffn_p = {"wi_gate": empty(L, d, cfg.d_ff),
-                 "wi_up": empty(L, d, cfg.d_ff),
-                 "wo": empty(L, cfg.d_ff, d)}
+        if run.kind == "shared_attn":
+            if "shared_attn" not in params:
+                params["shared_attn"] = _shared_attn_init(cfg, generator,
+                                                          device)
+            runs.append({})                              # weights shared
+            continue
         if run.kind == "ssm":
             rp = {"ln1": {"scale": ones(L, d)},
                   "ssm": _stacked(L, lambda: ssm_mod.ssm_init(
                       d, cfg.ssm, dtype, generator, device))}
             if run.ffn_kind == "dense":
+                ffn_p = ffn_stack(L, d)
                 _dense_init_all(ffn_p.values(), generator)
                 rp.update(ln2={"scale": ones(L, d)}, ffn=ffn_p)
             runs.append(rp)
             continue
+        ffn_p = ffn_stack(L, d)
         attn = {"wq": empty(L, d, H * Dh), "wk": empty(L, d, Hkv * Dh),
                 "wv": empty(L, d, Hkv * Dh), "wo": empty(L, H * Dh, d)}
         _dense_init_all(list(attn.values()) + list(ffn_p.values()),
@@ -194,6 +252,34 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                      "ln2": {"scale": ones(L, d)}, "ffn": ffn_p})
     params["runs"] = runs
     return params
+
+
+def _shared_attn_init(cfg: ModelConfig, generator: torch.Generator,
+                      device) -> Params:
+    """The Zamba2 shared block (the reference's ``_shared_attn_init``,
+    src/repro/models/transformer.py:144) at width d_in =
+    ``_shared_geometry``'s: norms over d_in, attention d_in -> H x dh ->
+    d_in, a d_in -> d_ff -> d_in FFN, and ``down`` [d_in, d_model], a
+    normal draw over sqrt(d_in)."""
+    dtype = torch_dtype(cfg.dtype)
+    d_in, nh, dh = _shared_geometry(cfg)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    attn = {"wq": empty(d_in, nh * dh), "wk": empty(d_in, nh * dh),
+            "wv": empty(d_in, nh * dh), "wo": empty(nh * dh, d_in)}
+    ffn_p = {"wi_gate": empty(d_in, cfg.d_ff), "wi_up": empty(d_in, cfg.d_ff),
+             "wo": empty(cfg.d_ff, d_in)}
+    for w in list(attn.values()) + list(ffn_p.values()):
+        dense_init(w, generator)
+    down = torch.empty((d_in, cfg.d_model), dtype=torch.float32,
+                       device=device)
+    torch.nn.init.normal_(down, 0.0, 1.0, generator=generator)
+    ones = torch.ones((d_in,), dtype=dtype, device=device)
+    return {"ln1": {"scale": ones}, "attn": attn,
+            "ln2": {"scale": ones.clone()}, "ffn": ffn_p,
+            "down": down.to(dtype) / math.sqrt(d_in)}
 
 
 def _dense_init_all(stacks, generator) -> None:
@@ -347,6 +433,34 @@ def _ssm_layer_decode(cfg, run, lp, x, cache, rows=None):
     return x
 
 
+def _shared_attn_apply(cfg, sp, x, embed0, *, positions=None, cache=None,
+                       pos=None, write=None):
+    """The Zamba2 shared block (the reference's ``_shared_attn_apply``,
+    src/repro/models/transformer.py:540) on ``inp = concat([x, embed0])``:
+    rmsnorm, attention at H = Hkv heads of dh (window 0, no qk-norm), the
+    residual, rmsnorm, the FFN and the residual on the d_in-wide stream,
+    then ``x + inp @ down``.  With ``positions`` it is a whole-prompt
+    prefill and returns (x, (k, v)), K/V [B, T, H, dh]; with ``cache`` (a
+    shared run's {"k", "v"} of [B, S, H, dh]) a one-token decode step that
+    writes its K/V at ``write`` (an ``arena_write_index``) in place and
+    returns (x, None)."""
+    _, nh, dh = _shared_geometry(cfg)
+    inp = torch.cat([x, embed0], dim=-1) if cfg.hybrid.concat_embedding else x
+    kw = dict(n_heads=nh, n_kv_heads=nh, d_head=dh,
+              theta=cfg.attn.rope_theta, window=0)
+    y = rmsnorm(sp["ln1"], inp, cfg.norm_eps)
+    if cache is None:
+        a, kv = attn_mod.attn_prefill(sp["attn"], y, positions, **kw)
+    else:
+        a, _, _ = attn_mod.attn_decode(sp["attn"], y, cache["k"], cache["v"],
+                                       pos, write=write, **kw)
+        kv = None
+    inp = inp + a
+    y = rmsnorm(sp["ln2"], inp, cfg.norm_eps)
+    inp = inp + ffn(sp["ffn"], y, cfg.act)
+    return x + matmul(inp, sp["down"]), kv
+
+
 def _pool_geometry(cache_run, run: RunSpec) -> Tuple[int, int, int]:
     n_pages, P = cache_run["k"].shape[1], cache_run["k"].shape[2]
     return attn_mod._paged_ring(run.window, n_pages, P), P, n_pages
@@ -362,15 +476,16 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
             slot_mask=None):
     """phase == "prefill": batch["tokens"] [B,T], positions 0..T-1.
         Returns (logits [B,1,V] f32 of the LAST position only, cache, 0.0):
-        per run {"k", "v"} of [L, B, cache_len(run, T), Hkv, D] in ring
-        order (``_pack_prefill_cache``).
+        per run the layout of ``_pack_prefill_cache`` (attention K/V in
+        ring order; SSM conv windows and states; a shared run's K/V).
     phase == "decode": batch["tokens"] [B,1], ``pos`` [B] (or a scalar)
         the position of each new token.  Returns (logits [B,1,V] f32,
         cache, 0.0), ``cache`` updated in place.  With ``block_tables``
         (one [B, W] int32 table per run) ``cache`` is the PAGED pool from
         ``serving.kv_pool.KVPool``; without, it is the dense arena of
         ``init_cache``, and only the rows of ``slot_mask`` [B] bool (every
-        row when None) write their new K/V, conv window and SSM state.
+        row when None) write their new K/V, conv window and SSM state; a
+        shared-attention run reads and writes its [B, S, H, dh] leaves.
 
     The train phase arrives with ROADMAP queue A, item 12."""
     if phase == "prefill":
@@ -386,12 +501,20 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
             f"phase={phase!r}: the train phase arrives with ROADMAP queue A, "
             "item 12")
     x = embed_tokens(params, cfg, batch["tokens"])
+    embed0 = x                            # the shared block's second half
     B = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device).long().expand(B)
     rows = (None if slot_mask is None
             else torch.nonzero(torch.as_tensor(slot_mask,
                                                device=x.device)).flatten())
     for r, run in enumerate(build_plan(cfg)):
+        if run.kind == "shared_attn":
+            # a shared run's K/V are [B, S, H, dh]: S on axis 1
+            write = attn_mod.arena_write_index(pos, cache[r]["k"].shape[1],
+                                               rows)
+            x, _ = _shared_attn_apply(cfg, params["shared_attn"], x, embed0,
+                                      cache=cache[r], pos=pos, write=write)
+            continue
         if run.kind == "ssm":
             for l in range(run.n_layers):
                 x = _ssm_layer_decode(cfg, run,
@@ -419,13 +542,20 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
 def _prefill(params, cfg, tokens, on_kv) -> torch.Tensor:
     """The whole-prompt forward: every layer at positions 0..T-1, each
     layer's cache leaves handed to ``on_kv(run index, layer, a, b)`` as they
-    are made — K and V [B,T,Hkv,D] of an attention layer, the conv window
-    [B, d_conv-1, conv_dim] and state [B,H,P,N] of an SSM layer — and the
-    last position's logits [B,1,V] f32 returned."""
+    are made — K and V [B,T,Hkv,D] of an attention layer (and of a shared
+    run's one application, layer 0), the conv window [B, d_conv-1,
+    conv_dim] and state [B,H,P,N] of an SSM layer — and the last
+    position's logits [B,1,V] f32 returned."""
     x = embed_tokens(params, cfg, tokens)
+    embed0 = x
     B, T = x.shape[0], x.shape[1]
     positions = torch.arange(T, device=x.device).expand(B, T)
     for r, run in enumerate(build_plan(cfg)):
+        if run.kind == "shared_attn":
+            x, (a, b) = _shared_attn_apply(cfg, params["shared_attn"], x,
+                                           embed0, positions=positions)
+            on_kv(r, 0, a, b)
+            continue
         for l in range(run.n_layers):
             lp = layer_view(params["runs"][r], l)
             if run.kind == "ssm":
@@ -451,7 +581,11 @@ def _ring_order(run: RunSpec, x, T: int):
 def _pack_prefill_cache(run: RunSpec, kvs, T: int):
     """One run's per-layer prefill leaves as the decode cache layout:
     {"k", "v"} of [L, B, cache_len(run, T), Hkv, D] in ring order for an
-    attention run, {"conv", "state"} of [L, B, ...] for an SSM run."""
+    attention run, {"conv", "state"} of [L, B, ...] for an SSM run, {"k",
+    "v"} of [B, T, H, dh] for a shared-attention run."""
+    if run.kind == "shared_attn":
+        (k, v), = kvs
+        return {"k": k, "v": v}
     if run.kind == "ssm":
         return {"conv": torch.stack([c for c, _ in kvs]),
                 "state": torch.stack([s for _, s in kvs])}
@@ -464,8 +598,9 @@ def prefill_into_arena(params: Params, cfg: ModelConfig, batch, slot: int,
     """Whole-prompt prefill of one request (batch["tokens"] [1, T]) spliced
     into arena slot ``slot``: each layer's cache leaves go straight into
     the arena as they are made — K/V in ring order, their last min(T_ring,
-    R) entries at positions [0, pl) of the slot; an SSM layer's conv window
-    and state whole — so the arena ends as the reference's
+    R) entries at positions [0, pl) of the slot (a shared run's at [0, pl)
+    of its batch-leading leaves); an SSM layer's conv window and state
+    whole — so the arena ends as the reference's
     ``splice_arena`` (src/repro/models/transformer.py:842) leaves it,
     without a stacked copy of every layer.  Returns (last_logits [1, 1, V]
     f32, cache) — the arena updated in place."""
@@ -477,6 +612,12 @@ def prefill_into_arena(params: Params, cfg: ModelConfig, batch, slot: int,
             for key, x in (("conv", a), ("state", b)):
                 cache[r][key][l, slot] = x[0].to(cache[r][key].dtype)
             return
+        if plan[r].kind == "shared_attn":
+            for key, x in (("k", a), ("v", b)):
+                arena = cache[r][key]                        # [B, S, H, dh]
+                pl = min(x.shape[1], arena.shape[1])
+                arena[slot, :pl] = x[0, x.shape[1] - pl:]
+            return
         for key, x in (("k", a), ("v", b)):
             arena = cache[r][key]
             x = _ring_order(plan[r], x, T)
@@ -484,6 +625,69 @@ def prefill_into_arena(params: Params, cfg: ModelConfig, batch, slot: int,
             arena[l, slot, :pl] = x[0, x.shape[1] - pl:]
 
     return _prefill(params, cfg, batch["tokens"], write), cache
+
+
+def splice_arena(cfg: ModelConfig, cache: List[Any], piece: List[Any],
+                 slot: int) -> List[Any]:
+    """Write a one-request prefill cache (``forward(phase="prefill")``'s,
+    batch 1) into arena slot ``slot`` in place and return the arena (the
+    reference's ``splice_arena``, src/repro/models/transformer.py:842): an
+    SSM run's conv window and state whole; the last min(T, S) K/V entries
+    of an attention run (batch axis 1, sequence axis 2) and of a shared run
+    (batch axis 0, sequence axis 1) at positions [0, pl)."""
+    for run, arena, p in zip(build_plan(cfg), cache, piece):
+        for key, a in arena.items():
+            pc = p[key]
+            if run.kind == "ssm":
+                a[:, slot] = pc[:, 0].to(a.dtype)
+                continue
+            ax = 2 if run.kind == "attn" else 1
+            pl = min(pc.shape[ax], a.shape[ax])
+            pc = pc.narrow(ax, pc.shape[ax] - pl, pl).to(a.dtype)
+            if run.kind == "attn":
+                a[:, slot, :pl] = pc[:, 0]
+            else:
+                a[slot, :pl] = pc[0]
+    return cache
+
+
+def pad_cache(cfg: ModelConfig, cache: List[Any], prompt_len: int,
+              max_len: int) -> List[Any]:
+    """A prefill cache (length ``prompt_len``) grown with zeros to
+    ``max_len`` positions so decoding can append (the reference's
+    ``pad_cache``, src/repro/models/transformer.py:889): an attention run's
+    leaves on axis 2 up to cache_len(run, max_len), a shared run's on axis
+    1; SSM states are length-independent and kept as they are."""
+    out = []
+    for run, c in zip(build_plan(cfg), cache):
+        if run.kind == "ssm" or c is None:
+            out.append(c)
+            continue
+        target = cache_len(run, max_len)
+        axis = 2 if run.kind == "attn" else 1
+
+        def grow(x):
+            if x.shape[axis] >= target:
+                return x
+            shape = list(x.shape)
+            shape[axis] = target - x.shape[axis]
+            return torch.cat([x, x.new_zeros(shape)], dim=axis)
+
+        out.append({k: grow(x) for k, x in c.items()})
+    return out
+
+
+def prefill(params: Params, cfg: ModelConfig, batch):
+    """Whole-prompt prefill: (last logits [B, 1, V] f32, cache)."""
+    logits, cache, _ = forward(params, cfg, batch, phase="prefill")
+    return logits, cache
+
+
+def decode_step(params: Params, cfg: ModelConfig, batch, cache, pos):
+    """One decode step over ``cache`` (updated in place): (logits, cache)."""
+    logits, cache, _ = forward(params, cfg, batch, phase="decode",
+                               cache=cache, pos=pos)
+    return logits, cache
 
 
 def forward_chunk_packed(params: Params, cfg: ModelConfig, tokens, starts,

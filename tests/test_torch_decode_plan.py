@@ -91,7 +91,8 @@ def test_longest_sequence_spreads_over_every_sm(len_max, units):
     (BF16, 128, 4, 8, 8192), (BF16, 128, 1, 32, 4160),
     (F32, 128, 4, 8, 4160), (F32, 16, 4, 1, 2176), (BF16, 16, 1, 4, 96),
     (BF16, 16, 4, 1, 16384), (da.PACKED, 128, 4, 8, 16384),
-    (da.PACKED, 16, 4, 1, 2176), (da.PACKED, 128, 1, 32, 4160)])
+    (da.PACKED, 16, 4, 1, 2176), (da.PACKED, 128, 1, 32, 4160),
+    (BF16, 160, 1, 32, 8448), (F32, 160, 1, 32, 4160)])
 def test_no_sequence_has_more_splits_than_the_scratch(dtype, D, G, Hkv,
                                                       capacity):
     """For every longest length up to the capacity the kernel's split cuts
@@ -102,6 +103,50 @@ def test_no_sequence_has_more_splits_than_the_scratch(dtype, D, G, Hkv,
                 for L in range(1, capacity + 1))
     assert worst == p.n_split_max
     assert p.acc_shape == (4, Hkv, p.n_split_max, G, D)
+
+
+@pytest.mark.parametrize("dtype,warp_tokens,quantum,lane_pieces", [
+    (BF16, 16, 64, 5), (F32, 4, 16, 5)])
+def test_plan_at_head_dim_160(dtype, warp_tokens, quantum, lane_pieces):
+    """B6 at zamba2's shared block (D = 160, G = 1): a row is 20 pieces of
+    16 bytes in bf16 and 40 in f32, which no lane group dividing the warp
+    covers one piece a lane, so 4 and 8 lanes copy 5 each; 8 KB stages
+    would hold 12 bf16 tokens, less than one 16-token tile of the tensor
+    cores, and 4 KB f32 stages 3, less than one pass of 4 rows, so a stage
+    grows to one tile (10 KB) or pass (5 KB): 80 KB of rings a block."""
+    p = da.plan(dtype, 160, 1, 32, 4, 8448, SMS)
+    assert (p.warp_tokens, p.quantum) == (warp_tokens, quantum)
+    pieces = 160 * dtype.itemsize // 16
+    assert pieces % lane_pieces == 0 and 32 % (pieces // lane_pieces) == 0
+    ring = da._WARPS * p.stages * p.warp_tokens * 2 * 160 * dtype.itemsize
+    assert ring == 80 << 10
+    assert p.acc_shape == (4, 32, p.n_split_max, 1, 160)
+
+
+def test_bf16_stage_swizzle_at_head_dim_160():
+    """The tensor-core walk's stage layout at D = 160 (``MmaWalk``): rows of
+    20 pieces, each piece's column xor-ed by (row / 2) % 4 within aligned
+    groups of 4 (the header's kSw), so every piece of a 16-token tile
+    lands once inside its own row, and each 8-row ldmatrix phase (rows
+    0-7 or 8-15 at one logical piece) touches 8 distinct 16-byte bank
+    groups."""
+    text = (_build.CSRC / "decode_split.cuh").read_text()
+    assert ("kSw = kPieces % 8 == 0 ? 8 : kPieces % 4 == 0 ? 4 : kPieces;"
+            in text)
+    assert "return c ^ ((r / (8 / kSw)) % kSw);" in text
+    pieces, sw, row_bytes = 20, 4, 320
+
+    def at(r, c):
+        return r * row_bytes + (c ^ ((r // (8 // sw)) % sw)) * 16
+
+    slots = [at(r, c) for r in range(16) for c in range(pieces)]
+    assert sorted(slots) == list(range(0, 16 * row_bytes, 16))
+    assert all(r * row_bytes <= at(r, c) < (r + 1) * row_bytes
+               for r in range(16) for c in range(pieces))
+    for c in range(pieces):
+        for r0 in (0, 8):
+            groups = {(at(r, c) // 16) % 8 for r in range(r0, r0 + 8)}
+            assert len(groups) == 8, (c, r0)
 
 
 @pytest.mark.parametrize("B,Hkv,capacity,grid", [
@@ -149,6 +194,16 @@ def test_constants_mirror_the_c_header():
         == da._MAX_BATCH
     assert "kStages = kSize == 2 ? 2 : 4;" in text
     assert f"< {da._MAX_WARP_TOKENS} ?" in text
+    # a stage grows to one whole tile (bf16) or pass (f32) where its share
+    # of the 64 KB ring holds less (D = 160), as ring_geometry mirrors
+    geom = text[text.index("struct Geom {"):text.index("struct Q4Geom {")]
+    assert "kTile = kSize == 2 ? 16 : kRowsPerPass;" in geom
+    assert "kRow = 2 * kD * kSize;" in geom
+    flat = " ".join(geom.split())
+    assert ("kSlotBytes = kRingBytes / (kWarps * kStages) > kTile * kRow ? "
+            "kRingBytes / (kWarps * kStages) : kTile * kRow;") in flat
+    assert "/ kTile * kTile;" in geom
+    assert "while (pieces % p != 0 || 32 % (pieces / p) != 0) ++p;" in text
     assert "(static_cast<long long>(len_max) * Hkv + unit / 2) / unit" in text
     # packed int4 pages: Q4Geom's stages, pieces and tokens a stage
     q4 = text[text.index("struct Q4Geom {"):]
@@ -157,6 +212,22 @@ def test_constants_mirror_the_c_header():
     assert "kFit = kSlotBytes / (2 * kRowBytes + 8);" in q4
     assert (f"kWarpTok = (kFit < {da._MAX_WARP_TOKENS} ? kFit : "
             f"{da._MAX_WARP_TOKENS}) / kRowsPerPass * kRowsPerPass;") in q4
+
+
+def test_dense_dispatch_adds_head_dim_160_at_one_group():
+    """B6's entry point dispatches D = 160 at G = 1 on top of the shapes
+    B1 and B4 share, as the wrapper's ``_DENSE_EXTRA`` says."""
+    text = (_build.CSRC / "decode_split.cuh").read_text()
+    body = text[text.index("cudaError_t dispatch_dense("):]
+    assert "if (D != 160) return dispatch(dtype, D, G, f);" in body
+    assert "if (G != 1) return cudaErrorInvalidValue;" in body
+    assert re.findall(r"operator\(\)<\w+, (\d+), (\d+)>\(\)", body) == [
+        ("160", "1"), ("160", "1")]
+    assert da._DENSE_EXTRA == {160: (1,)}
+    dense = (_build.CSRC / "decode_attention.cu").read_text()
+    assert "decode_split::dispatch_dense(dtype, D, H / Hkv, f)" in dense
+    for paged in ("paged_decode_attention.cu", "paged_decode_attention_q4.cu"):
+        assert "dispatch_dense" not in (_build.CSRC / paged).read_text()
 
 
 def test_every_group_size_is_instantiated():
